@@ -12,7 +12,11 @@ Run from the repo root on a machine with one H100. It
   3. holds each kernel bit-identical to its plain torch version at the
      main path's shapes and on small adversarial cases, and times the
      kernel, the plain version and one PyTorch library call that
-     computes the same function (the yardstick, never used by the port);
+     computes the same function (the yardstick, never used by the port):
+     device ms amortized over a run of back-to-back calls that rotate
+     over copies of the inputs larger than the L2 together (so each
+     call finds its inputs cold), kernel and library in turns, and the
+     host µs of one wrapper call on its own;
   4. runs the port's out-of-core CloudSort at 2^20 records on the card and
      on the CPU, with both reduce merges: the output etags must agree;
   5. runs the full sort — 100-byte records, 4 waves of 2^24 records
@@ -45,6 +49,9 @@ SRC = os.path.join(HERE, "src")
 WORK_DIR = os.path.join(HERE, "build", "chip_smoke")  # stores; git-ignored
 
 NON_TENSOR_OPS = 67e12  # H100 SXM non-tensor peak (the guide's float32 rate)
+L2_BYTES = 50 << 20  # H100 L2
+TIMED_CALLS = 20  # back-to-back calls between one pair of events
+SLEEP_CYCLES_PER_S = 2e9  # torch.cuda._sleep cycles a second (~the SM clock)
 SEED = 20231
 NUM_WORKERS = 8  # W of the example (the reference's 8-device mesh)
 WAVES = 4  # map waves of the full run: 4x out of core
@@ -62,20 +69,47 @@ def mem_rate(name: str) -> float:
     return 2.0e12 if "PCIe" in name else 3.35e12
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median ms of fn() over `reps` runs, CUDA events, after one warm-up."""
-    fn()
+def rotation(inputs):
+    """`inputs` and enough clones of it that together they hold at least
+    3x the L2: a run that cycles through them finds each copy cold."""
+    size = sum(t.numel() * t.element_size() for t in inputs)
+    n = max(2, -(-3 * L2_BYTES // max(size, 1)))
+    return [inputs] + [tuple(t.clone() for t in inputs)
+                       for _ in range(n - 1)]
+
+
+def host_us(fn, inputs, reps=20) -> float:
+    """Median host µs of one fn(*inputs) call: the wrapper's Python work
+    and the enqueue, not the device's time."""
+    fn(*inputs)
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+        t0 = time.perf_counter()
+        fn(*inputs)
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def device_ms(fn, copies, calls, host_s) -> float:
+    """Device ms of one call, amortized over `calls` back-to-back calls
+    between one pair of CUDA events, rotating over `copies` (after a
+    warm-up over them). A sleep kernel ahead of the first event holds the
+    card until the host has enqueued the calls (~host_s each), so the
+    window holds device time, not the host's."""
+    for c in copies:
+        fn(*c)
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (1.5 * calls * host_s + 1e-3)))
+    s.record()
+    for i in range(calls):
+        fn(*copies[i % len(copies)])
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / calls
 
 
 def probe_u32():
@@ -106,6 +140,42 @@ def probe_u32():
     return out
 
 
+def kernel_split(fn, *args):
+    """[kernel name, device µs] of each kernel one fn(*args) call
+    launches, in launch order, from a torch.profiler trace of the call
+    (warm: its inputs were just used)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+
+    def short(name):  # "void (anonymous namespace)::k<4>(...)" -> "k<4>"
+        name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        return name.replace("void ", "").strip()
+
+    return [[short(e.name), e.time_range.elapsed_us()] for e in evs]
+
+
+def ptxas_summary(logs):
+    """'<kernel>: <line>' for each register-count and spill line of the
+    `nvcc -Xptxas -v` logs (one log per source)."""
+    out, fn = [], None
+    for text in logs.values():
+        for ln in text.splitlines():
+            ln = ln.strip()
+            if "Function properties for" in ln:
+                fn = ln.rsplit(" ", 1)[-1]
+            elif fn and ("spill" in ln or "registers" in ln):
+                out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def check_equal(name, got, want):
     """Bit-identity of kernel vs plain outputs; returns max |diff| over
     the outputs' unsigned 32-bit values."""
@@ -128,9 +198,10 @@ def check_equal(name, got, want):
 def phase_kernels(plan):
     """Each kernel at the main path's shapes against its plain version on
     the card (bit-identical), plus small adversarial cases; times."""
-    from repro_torch.kernels import ops, ref, u32
+    from repro_torch.kernels import bitonic_sort, ops, ref, u32
     from repro_torch.kernels.bitonic_sort import (bitonic_sort_blocks,
-                                                  bitonic_sort_blocks_plain)
+                                                  bitonic_sort_blocks_plain,
+                                                  sort_plan)
     from repro_torch.kernels.kway_merge import (
         merge_sorted_pairs_indexed, merge_sorted_pairs_indexed_plain)
     from repro_torch.kernels.merge_sorted import (merge_sorted_pairs,
@@ -180,24 +251,50 @@ def phase_kernels(plan):
         v = u32.from_numpy(rng.integers(0, 3, shape).astype(np.uint32), "cpu")
         return ops.sort_kv(k, v)
 
+    def misaligned(t):
+        """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+        boundary: the partition's 4-byte-load path."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    bound_sets = ([], [3], [1, 2**31], [0, 0, 5, 5, 0xFFFFFFFF],
+                  sorted(rng.integers(0, 2**32, 12).tolist()),
+                  list(range(100)))  # R = 0, 1, 2, 5, 12, 100
     n_checks = 0
     for case in cases:
-        for shape in ((1, 1), (3, 2), (4, 256), (2, 4096), (2, 8192),
-                      (1, 1 << 16)):
+        # sort: below, at and above the warp span (512) and the tile (2^14),
+        # and rows whose windows take 1..5 fused global substages
+        for shape in ((1, 1), (3, 2), (4, 256), (2, 512), (2, 4096),
+                      (2, 8192), (1, 1 << 14), (2, 1 << 15), (1, 1 << 17),
+                      (1, 1 << 19)):
             kc = u32.from_numpy(draw(case, shape), "cpu")
             vc = u32.from_numpy(rng.integers(0, 3, shape).astype(np.uint32),
                                 "cpu")
-            got = bitonic_sort_blocks(kc.to(dev), vc.to(dev))
-            check_equal("sort", got, bitonic_sort_blocks_plain(kc, vc))
+            kd, vd = kc.to(dev), vc.to(dev)
+            got = bitonic_sort_blocks(kd, vd)
+            check_equal("sort", got, bitonic_sort_blocks_plain(kd, vd))
             check_equal("sort-ref", got, ref.sort_kv_ref(kc, vc))
-            for bounds in ([0, 0, 5, 5, 0xFFFFFFFF], [3], list(range(100))):
-                bt = u32.from_numpy(np.array(bounds, np.uint32), "cpu")
-                for keys in (got[0].cpu(), kc):  # sorted rows, unsorted rows
-                    got_p = partition_offsets_blocks(keys.to(dev), bt.to(dev))
-                    check_equal("partition", (got_p,),
+            n_checks += 2
+            for bounds in bound_sets[1::2]:
+                bt = u32.from_numpy(np.array(bounds, np.uint32), dev)
+                for keys in (got[0], kd):  # sorted rows, unsorted rows
+                    check_equal("partition",
+                                (partition_offsets_blocks(keys, bt),),
                                 (partition_offsets_blocks_plain(keys, bt),))
                     n_checks += 1
-            n_checks += 2
+        # partition: ragged rows (B % 4 != 0), B = 0, many short rows, the
+        # main path's row length; aligned and misaligned starts
+        for shape in ((3, 1001), (2, 6), (1000, 3), (5, 0), (2, 1 << 20)):
+            kd = u32.from_numpy(draw(case, shape), dev)
+            for keys in (kd, misaligned(kd)):
+                for bounds in bound_sets:
+                    bt = u32.from_numpy(np.array(bounds, np.uint32), dev)
+                    check_equal("partition",
+                                (partition_offsets_blocks(keys, bt),),
+                                (partition_offsets_blocks_plain(keys, bt),))
+                    n_checks += 1
         for shape in ((1, 1), (5, 4), (3, 256), (2, 4096), (1, 1 << 15)):
             a, b = cpu_sorted(case, shape), cpu_sorted(case, shape)
             got_m = merge_sorted_pairs(*(t.to(dev) for t in a + b))
@@ -227,65 +324,92 @@ def phase_kernels(plan):
          ops_per_s=NON_TENSOR_OPS)
     rows = []
 
-    def record(name, source, replaces, shape, got, plain_fn, kern_fn, lib_fn,
-               nbytes, nops, listed=True):
-        err = check_equal(name, got, plain_fn())
-        ms = cuda_ms(kern_fn, 10)
-        plain_ms = cuda_ms(plain_fn, 3)
-        lib_ms = cuda_ms(lib_fn, 10) if lib_fn else None
+    def record(name, source, replaces, shape, inputs, kern, plain, lib,
+               lib_inputs, nbytes, nops, listed=True, **extra):
+        """kern, plain and lib are functions of *inputs (lib of
+        *lib_inputs). Times: kernel and library in turns (K, L, L, K),
+        each turn amortized over TIMED_CALLS cold-L2 calls."""
+        err = check_equal(name, kern(*inputs), plain(*inputs))
+        copies, lib_copies = rotation(inputs), rotation(lib_inputs)
+        k_host, l_host = host_us(kern, inputs), host_us(lib, lib_inputs)
+        p_host = host_us(plain, inputs, reps=1)
+        turns = {"kernel": [], "library": []}
+        for who in ("kernel", "library", "library", "kernel"):
+            fn, cs, hs = ((kern, copies, k_host) if who == "kernel"
+                          else (lib, lib_copies, l_host))
+            turns[who].append(device_ms(fn, cs, TIMED_CALLS, hs * 1e-6))
+        plain_ms = device_ms(plain, copies, 2, p_host * 1e-6)
         bound_bytes, bound_ops = nbytes / rate * 1e3, nops / NON_TENSOR_OPS * 1e3
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   shape=shape, launches=0, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
+                   shape=shape, launches=0, max_abs_err=err,
+                   ms=statistics.mean(turns["kernel"]), plain_ms=plain_ms,
+                   bound_ms=max(bound_bytes, bound_ops),
                    bound_by="bytes" if bound_bytes >= bound_ops
-                   else "operations", library_ms=lib_ms)
-        emit(phase="kernel", **row)
+                   else "operations",
+                   library_ms=statistics.mean(turns["library"]),
+                   l2="cold", host_us=k_host, **extra)
+        emit(phase="kernel", turns_ms=turns, copies=len(copies),
+             calls=TIMED_CALLS, **row)
         if listed:
             rows.append(row)
+        del copies, lib_copies
         torch.cuda.empty_cache()
 
     csrc = "src/repro_torch/kernels/csrc/"
     # sort (W, per_round): the map sort of every round
     nb, b = w, per_round
     k, v = rand((nb, b)), rand((nb, b))
-    got = bitonic_sort_blocks(k, v)
-    packed = u32.pack(k, v)
     record("bitonic_sort_blocks", csrc + "bitonic_sort.cu",
-           "src/repro/kernels/bitonic_sort.py:97", [nb, b], got,
-           lambda: bitonic_sort_blocks_plain(k, v),
-           lambda: bitonic_sort_blocks(k, v),
-           lambda: torch.sort(packed, dim=-1),
-           16 * nb * b, nb * b * max(b.bit_length() - 1, 1))
-    # partition (W, per_round) x W-1 worker boundaries
+           "src/repro/kernels/bitonic_sort.py:97", [nb, b], (k, v),
+           bitonic_sort_blocks, bitonic_sort_blocks_plain,
+           lambda p: torch.sort(p, dim=-1), (u32.pack(k, v),),
+           16 * nb * b, nb * b * max(b.bit_length() - 1, 1),
+           passes=len(sort_plan(b)))
+    split = kernel_split(bitonic_sort_blocks, k, v)
+    emit(phase="kernel.split", name="bitonic_sort_blocks", plan=sort_plan(b),
+         kernels=split, device_us=sum(t for _, t in split))
+    # the tile size the wrapper uses against its two neighbours
+    chosen, tiles, want = bitonic_sort.TILE, {}, bitonic_sort_blocks(k, v)
+    try:
+        for tile in (chosen // 2, chosen, 2 * chosen):
+            bitonic_sort.TILE = tile
+            check_equal(f"sort tile {tile}", bitonic_sort_blocks(k, v), want)
+            host = host_us(bitonic_sort_blocks, (k, v), reps=3)
+            tiles[tile] = dict(passes=len(sort_plan(b)), ms=device_ms(
+                bitonic_sort_blocks, rotation((k, v)), TIMED_CALLS,
+                host * 1e-6))
+    finally:
+        bitonic_sort.TILE = chosen
+    emit(phase="kernel.tiles", name="bitonic_sort_blocks", chosen=chosen,
+         tiles=tiles)
+    del want
+    # partition (W, per_round) x W-1 worker boundaries, on sorted rows
     from repro_torch.core.keyspace import KeySpace
 
-    sk = got[0].contiguous()
+    sk = bitonic_sort_blocks(k, v)[0]
+    del k, v
     wb = KeySpace(num_reducers=w * r1, num_workers=w).worker_boundaries(dev)
-    sk64 = u32.widen(sk)
     wb64 = u32.widen(wb).reshape(1, -1).expand(nb, -1).contiguous()
     record("partition_offsets_blocks", csrc + "range_partition.cu",
            "src/repro/kernels/range_partition.py:76", [nb, b, wb.numel()],
-           (partition_offsets_blocks(sk, wb),),
-           lambda: (partition_offsets_blocks_plain(sk, wb),),
-           lambda: partition_offsets_blocks(sk, wb),
-           lambda: torch.searchsorted(sk64, wb64),
+           (sk, wb), lambda *a: (partition_offsets_blocks(*a),),
+           lambda *a: (partition_offsets_blocks_plain(*a),),
+           torch.searchsorted, (u32.widen(sk), wb64),
            4 * nb * b + 4 * wb.numel() + 4 * nb * wb.numel(),
-           nb * b * wb.numel())
-    del k, v, got, packed, sk, sk64
+           nb * b * wb.numel(), passes=1)
+    del sk
     # merge: first tournament round (W*W/2, C) — the listed row — and the
     # stage-2 merge (W*rounds/2, W*C): the two ends of the path's shapes
     for i, (n, L) in enumerate(((w * w // 2, cap),
                                 (w * plan.num_rounds // 2, w * cap))):
         a, bb = sorted_rows((n, L)), sorted_rows((n, L))
-        cat = torch.cat([u32.pack(*a), u32.pack(*bb)], dim=-1)
         record("merge_sorted_pairs", csrc + "merge_sorted.cu",
-               "src/repro/kernels/merge_sorted.py:53", [n, L],
-               merge_sorted_pairs(*a, *bb),
-               lambda: merge_sorted_pairs_plain(*a, *bb),
-               lambda: merge_sorted_pairs(*a, *bb),
-               lambda: torch.sort(cat, dim=-1), 32 * n * L, 2 * n * L,
-               listed=i == 0)
-        del a, bb, cat
+               "src/repro/kernels/merge_sorted.py:53", [n, L], (*a, *bb),
+               merge_sorted_pairs, merge_sorted_pairs_plain,
+               lambda c: torch.sort(c, dim=-1),
+               (torch.cat([u32.pack(*a), u32.pack(*bb)], dim=-1),),
+               32 * n * L, 2 * n * L, listed=i == 0)
+        del a, bb
     # indexed merge: one reduce emit window's first tournament round
     # (a window holds at most one merge_chunk_bytes chunk of each of the
     # WAVES runs of a partition: K = next_pow2(WAVES) rows of L records)
@@ -293,17 +417,27 @@ def phase_kernels(plan):
     L = ops.next_pow2(plan.merge_chunk_bytes // plan.record_bytes)
     a, bb = sorted_rows((n, L)), sorted_rows((n, L))
     ai = torch.arange(n * L, dtype=torch.int32, device=dev).reshape(n, L)
-    bi = ai + n * L
-    cat = torch.cat([u32.pack(*a), u32.pack(*bb)], dim=-1)
     record("merge_sorted_pairs_indexed", csrc + "kway_merge.cu",
            "src/repro/kernels/kway_merge.py:126", [n, L],
-           merge_sorted_pairs_indexed(a[0], a[1], ai, bb[0], bb[1], bi),
-           lambda: merge_sorted_pairs_indexed_plain(a[0], a[1], ai,
-                                                    bb[0], bb[1], bi),
-           lambda: merge_sorted_pairs_indexed(a[0], a[1], ai,
-                                              bb[0], bb[1], bi),
-           lambda: torch.sort(cat, dim=-1, stable=True), 48 * n * L, 2 * n * L)
+           (a[0], a[1], ai, bb[0], bb[1], ai + n * L),
+           merge_sorted_pairs_indexed, merge_sorted_pairs_indexed_plain,
+           lambda c: torch.sort(c, dim=-1, stable=True),
+           (torch.cat([u32.pack(*a), u32.pack(*bb)], dim=-1),),
+           48 * n * L, 2 * n * L)
     return rows
+
+
+def full_plan():
+    """The full run's plan: waves of FULL_WAVE_RECORDS 100-byte records."""
+    from repro_torch.core.external_sort import ExternalSortPlan
+
+    return ExternalSortPlan(
+        records_per_wave=FULL_WAVE_RECORDS, num_rounds=2, reducers_per_worker=4,
+        payload_words=23, impl="kernel",
+        input_records_per_partition=FULL_WAVE_RECORDS // 4,
+        output_part_records=1 << 16, store_chunk_bytes=8 << 20,
+        merge_chunk_bytes=1 << 20, parallel_reducers=4,
+        reduce_memory_budget_bytes=32 << 20, reduce_merge_impl="device")
 
 
 def layout(root, prefix="output/"):
@@ -365,11 +499,8 @@ def run(log):
         print(f"--- ptxas {src} ---\n{text}", file=log)
     emit(phase="build", seconds=time.perf_counter() - t0,
          dir=_build.build_info["dir"],
-         ptxas=[ln.strip() for txt in _build.build_info.get(
-             "ptxas", {}).values() for ln in txt.splitlines()
-             if "registers" in ln])
+         ptxas=ptxas_summary(_build.build_info.get("ptxas", {})))
 
-    from repro_torch.core.external_sort import ExternalSortPlan
     from repro_torch.kernels.bitonic_sort import bitonic_sort_blocks
     from repro_torch.kernels.kway_merge import merge_sorted_pairs_indexed
     from repro_torch.kernels.merge_sorted import merge_sorted_pairs
@@ -379,13 +510,7 @@ def run(log):
                 "partition_offsets_blocks": partition_offsets_blocks,
                 "merge_sorted_pairs": merge_sorted_pairs,
                 "merge_sorted_pairs_indexed": merge_sorted_pairs_indexed}
-    full = ExternalSortPlan(
-        records_per_wave=FULL_WAVE_RECORDS, num_rounds=2, reducers_per_worker=4,
-        payload_words=23, impl="kernel",
-        input_records_per_partition=FULL_WAVE_RECORDS // 4,
-        output_part_records=1 << 16, store_chunk_bytes=8 << 20,
-        merge_chunk_bytes=1 << 20, parallel_reducers=4,
-        reduce_memory_budget_bytes=32 << 20, reduce_merge_impl="device")
+    full = full_plan()
 
     # ---- 3. kernels against their plain versions ----
     rows = phase_kernels(full)

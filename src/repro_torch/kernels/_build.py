@@ -32,9 +32,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: source name -> (C entry point, argtypes); the last argument is the stream.
 SIGNATURES = {
-    "bitonic_sort": ("rt_bitonic_sort", [_P, _P, _P, _P, _LL, _LL, _P]),
+    "bitonic_sort": ("rt_bitonic_sort",
+                     [_P] * 5 + [_LL, _LL, _LL, _P, _I, _P]),
     "range_partition": ("rt_partition_offsets",
-                        [_P, _P, _P, _LL, _LL, _I, _P]),
+                        [_P] * 5 + [_LL, _LL, _I, _I, _P]),
     "merge_sorted": ("rt_merge_pairs", [_P] * 6 + [_LL, _LL, _P]),
     "kway_merge": ("rt_merge_pairs_indexed", [_P] * 9 + [_LL, _LL, _P]),
 }
@@ -42,6 +43,8 @@ SIGNATURES = {
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _fns: dict[str, ctypes._CFuncPtr] = {}
+#: Devices whose capability was checked to be (9, 0) or newer.
+_hopper: set = set()
 #: Filled by the build: seconds, output directory, ptxas report per source.
 build_info: dict = {}
 
@@ -111,21 +114,34 @@ def function(name: str):
     return fn
 
 
+def prepare(name: str, dev: torch.device):
+    """csrc/<name>.cu's entry point for a launch on `dev`: raises on a
+    card below capability (9, 0) (read once per device) and, through
+    `function`, on a failed build."""
+    if dev not in _hopper:
+        if torch.cuda.get_device_capability(dev) < (9, 0):
+            raise RuntimeError(f"{dev} is older than Hopper: the kernels "
+                               "are built for sm_90a only")
+        _hopper.add(dev)
+    return _fns.get(name) or function(name)
+
+
 def launch(name: str, *args) -> None:
     """Call csrc/<name>.cu's entry point on the current stream of the
     first tensor's device. Tensors pass as data_ptr(); raises on a card
     below capability (9, 0) and on a non-zero cudaGetLastError()
-    returned by the C side."""
+    returned by the C side. A device context is entered only when the
+    device is not current: the reduce side pays this host work on each
+    of its ~10^4 launches a run."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    if torch.cuda.get_device_capability(dev) < (9, 0):
-        raise RuntimeError(f"{dev} is older than Hopper: the kernels are "
-                           "built for sm_90a only")
-    fn = function(name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-                  for a in args]
-        rc = fn(*c_args, stream)
+    fn = prepare(name, dev)
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+              for a in args]
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
 

@@ -6,17 +6,29 @@ unsorted rows too, and duplicate boundaries give empty slices — the
 routing contract of searchsorted side="left" that the host-side
 RangePartitioner mirrors with side="right".
 
-  * the CUDA kernel, csrc/range_partition.cu — a (row, key tile) grid,
-    block-reduced counts, one integer atomicAdd per block and boundary;
+  * the CUDA kernel, csrc/range_partition.cu — one launch a call: a grid
+    sized to fill the card streams each row with 16-byte loads, and the
+    last block of a row to finish sums the blocks' partial counts;
   * the plain version — the same compare-and-count in torch on int64
     carriers, one boundary at a time.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build, u32
+
+BLOCKS_PER_SM = 4  # the grid: about this many blocks on each SM in all
+MIN_KEYS_PER_BLOCK = 16384
+
+_scratch_lock = threading.Lock()
+#: (device, stream) -> (partials int32, tickets int32 kept zeroed by the
+#: kernel). Launches on one stream run in order, so they share it.
+_scratch: dict = {}
+_sm_count: dict = {}
 
 
 def searchsorted_reference(sorted_keys, boundaries):
@@ -40,6 +52,31 @@ def partition_offsets_blocks_plain(keys: torch.Tensor,
     return torch.stack(cols, dim=-1).to(torch.int32)
 
 
+def _blocks_per_row(dev, nb: int, b: int) -> int:
+    sms = _sm_count.get(dev)
+    if sms is None:
+        sms = _sm_count[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    want = -(-BLOCKS_PER_SM * sms // nb)
+    return max(1, min(want, -(-b // MIN_KEYS_PER_BLOCK)))
+
+
+def _scratch_for(dev, n_partial: int, nb: int):
+    """The partials and tickets of the current stream, grown to fit."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    with _scratch_lock:
+        have = _scratch.get(key)
+        if (have is None or have[0].numel() < n_partial
+                or have[1].numel() < nb):
+            if have is not None:  # freed to the allocator in stream order
+                n_partial = max(n_partial, have[0].numel())
+                nb = max(nb, have[1].numel())
+            have = _scratch[key] = (
+                torch.empty(n_partial, dtype=torch.int32, device=dev),
+                torch.zeros(nb, dtype=torch.int32, device=dev))
+        return have
+
+
 def partition_offsets_blocks(sorted_keys: torch.Tensor,
                              boundaries: torch.Tensor) -> torch.Tensor:
     """offsets[i, j] = #{k in row i : k < boundaries[j]}.
@@ -56,9 +93,14 @@ def partition_offsets_blocks(sorted_keys: torch.Tensor,
     u32.require_u32(sorted_keys, boundaries)
     nb, b = sorted_keys.shape
     r = boundaries.shape[0]
-    out = torch.empty((nb, r), dtype=torch.int32, device=sorted_keys.device)
+    dev = sorted_keys.device
+    out = torch.empty((nb, r), dtype=torch.int32, device=dev)
     if nb and r:
-        _build.launch("range_partition", sorted_keys, boundaries, out, nb, b, r)
+        _build.prepare("range_partition", dev)  # raises before the sizing
+        bpr = _blocks_per_row(dev, nb, b)
+        partials, tickets = _scratch_for(dev, nb * bpr * r, nb)
+        _build.launch("range_partition", sorted_keys, boundaries, out,
+                      partials, tickets, nb, b, r, bpr)
         _build.count_launch(partition_offsets_blocks)
     return out
 

@@ -23,7 +23,7 @@ for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(info.name)
     names.append(info.name)
 import chip_smoke
-chip_smoke.emit, chip_smoke.cuda_ms, chip_smoke.check_equal
+chip_smoke.emit, chip_smoke.device_ms, chip_smoke.check_equal
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))

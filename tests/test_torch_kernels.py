@@ -366,5 +366,6 @@ def test_wrappers_launch_or_raise_off_cpu(call, capability, error,
                         lambda *a: capability)
     monkeypatch.setattr(_build, "_nvcc", no_nvcc)
     monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(_build, "_hopper", set())
     with pytest.raises(RuntimeError, match=error):
         call()
