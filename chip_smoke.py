@@ -198,7 +198,7 @@ def check_equal(name, got, want):
 def phase_kernels(plan):
     """Each kernel at the main path's shapes against its plain version on
     the card (bit-identical), plus small adversarial cases; times."""
-    from repro_torch.kernels import bitonic_sort, ops, ref, u32
+    from repro_torch.kernels import ops, ref, u32
     from repro_torch.kernels.bitonic_sort import (bitonic_sort_blocks,
                                                   bitonic_sort_blocks_plain,
                                                   sort_plan)
@@ -264,7 +264,7 @@ def phase_kernels(plan):
                   list(range(100)))  # R = 0, 1, 2, 5, 12, 100
     n_checks = 0
     for case in cases:
-        # sort: below, at and above the warp span (512) and the tile (2^14),
+        # sort: below, at and above the warp span (512) and the tile (2^13),
         # and rows whose windows take 1..5 fused global substages
         for shape in ((1, 1), (3, 2), (4, 256), (2, 512), (2, 4096),
                       (2, 8192), (1, 1 << 14), (2, 1 << 15), (1, 1 << 17),
@@ -368,21 +368,6 @@ def phase_kernels(plan):
     split = kernel_split(bitonic_sort_blocks, k, v)
     emit(phase="kernel.split", name="bitonic_sort_blocks", plan=sort_plan(b),
          kernels=split, device_us=sum(t for _, t in split))
-    # the tile size the wrapper uses against its two neighbours
-    chosen, tiles, want = bitonic_sort.TILE, {}, bitonic_sort_blocks(k, v)
-    try:
-        for tile in (chosen // 2, chosen, 2 * chosen):
-            bitonic_sort.TILE = tile
-            check_equal(f"sort tile {tile}", bitonic_sort_blocks(k, v), want)
-            host = host_us(bitonic_sort_blocks, (k, v), reps=3)
-            tiles[tile] = dict(passes=len(sort_plan(b)), ms=device_ms(
-                bitonic_sort_blocks, rotation((k, v)), TIMED_CALLS,
-                host * 1e-6))
-    finally:
-        bitonic_sort.TILE = chosen
-    emit(phase="kernel.tiles", name="bitonic_sort_blocks", chosen=chosen,
-         tiles=tiles)
-    del want
     # partition (W, per_round) x W-1 worker boundaries, on sorted rows
     from repro_torch.core.keyspace import KeySpace
 

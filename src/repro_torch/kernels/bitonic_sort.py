@@ -25,10 +25,10 @@ import torch
 from repro_torch.kernels import _build, u32
 
 # Records per tile pass: 64 KB of packed u64 (512 threads), so two blocks
-# share an SM and one's loads overlap the other's compares. 2^14 (one block
-# an SM) makes fewer passes but runs slower; chip_smoke.py times both.
+# share an SM and one's loads overlap the other's compares (the kernel's
+# TILE_MAX). 2^14 tiles (one block an SM) make fewer passes but ran slower.
 TILE = 1 << 13
-FUSE = 6  # substages per fused global pass (the kernel takes 1..6)
+FUSE = 6  # most substages a fused global pass runs (the kernel's FUSE_MAX)
 
 
 def _compare_exchange(packed: torch.Tensor, dist: int, window: int):
@@ -66,24 +66,24 @@ def bitonic_sort_blocks_plain(keys: torch.Tensor, vals: torch.Tensor):
     return u32.unpack(bitonic_network(u32.pack(keys, vals)))
 
 
-def sort_plan(b: int, tile: int | None = None,
-              fuse: int | None = None) -> list[tuple[int, int, int]]:
+def sort_plan(b: int, tile: int = TILE) -> list[tuple[int, int, int]]:
     """The kernel's passes over rows of B records, as (window, first
     distance, substage count) triples that together run the network's
-    substages in order. Pass 0 sorts each tile (windows 2..tile); each
-    window w > tile then takes ceil(log2(w / tile) / fuse) fused global
-    passes (distances w/2 .. tile, split as evenly as it goes) and one
-    tile pass (distances tile/2 .. 1). For B = 2^20 with the defaults:
-    1 + 8 + 7 = 16 passes (13 with 2^14 tiles)."""
-    tile = min(b, TILE if tile is None else tile)
-    fuse = FUSE if fuse is None else fuse
+    substages in order. Pass 0 sorts each tile of min(B, tile) records
+    (windows 2..tile); each window w > tile then takes
+    ceil(log2(w / tile) / FUSE) fused global passes (distances w/2 ..
+    tile, split as evenly as it goes) and one tile pass (distances
+    tile/2 .. 1). For B = 2^20: 1 + 8 + 7 = 16 passes. The wrapper always
+    uses TILE; a smaller tile lets the CPU tests replay fused passes on
+    short rows."""
+    tile = min(b, tile)
     assert b & (b - 1) == 0 and tile & (tile - 1) == 0 and (tile > 1 or b == 1)
     lt = tile.bit_length() - 1
     plan = [(2, 1, lt * (lt + 1) // 2)]
     w = 2 * tile
     while w <= b:
         n, d = (w // tile).bit_length() - 1, w // 2
-        parts = -(-n // fuse)
+        parts = -(-n // FUSE)
         for i in range(parts):
             c = n // parts + (i < n % parts)
             plan.append((w, d, c))
@@ -115,7 +115,7 @@ def bitonic_sort_blocks(keys: torch.Tensor, vals: torch.Tensor):
     if not keys.numel():
         return ok, ov
     tile = min(b, TILE)
-    plan = sort_plan(b, tile)
+    plan = sort_plan(b)
     scratch = (torch.empty((nb, b), dtype=torch.int64, device=keys.device)
                if len(plan) > 1 else 0)
     triples = (ctypes.c_longlong * (3 * len(plan)))(*sum(plan, ()))

@@ -15,15 +15,14 @@
 //     64-bit compare; the first pass reads the key and val arrays, the
 //     last pass writes them, and the passes between work in place on a
 //     packed u64 scratch row that the wrapper allocates;
-//   * bitonic_tile: one block per tile (the wrapper's TILE = 2^13
-//     records: 512 threads of E = 16 records each, 68 KB of dynamic
-//     shared memory, two blocks an SM so one block's loads overlap the
-//     other's compares; up to 2^14) runs every substage whose distance is
-//     below the tile, with the tile in registers: three layouts (C, A, B
-//     below) put distances 1..8, 32..256 and T..tile/2 (T = threads)
-//     between two registers of one thread and distance 16 between two
-//     lanes (shuffle); shared memory only carries the switches between
-//     layouts (and distance 512 for a 2^14 tile);
+//   * bitonic_tile: one block per tile (TILE_MAX = 2^13 records: 512
+//     threads of E = 16 records each, 68 KB of dynamic shared memory, two
+//     blocks an SM so one block's loads overlap the other's compares)
+//     runs every substage whose distance is below the tile, with the tile
+//     in registers: three layouts (C, A, B below) put distances 1..8,
+//     32..256 and T..tile/2 (T = threads) between two registers of one
+//     thread and distance 16 between two lanes (shuffle); shared memory
+//     only carries the switches between layouts;
 //   * bitonic_global<R>: for distances of a tile or more, one pass runs R
 //     (1..6) consecutive substages d, d/2, .., d/2^(R-1) of one window.
 //     Each thread loads the 2^R records at stride d/2^(R-1) that those
@@ -55,7 +54,7 @@ using u64 = unsigned long long;
 
 constexpr int E = 16;                 // records per thread in a tile pass
 constexpr int WARP_SPAN = 32 * E;     // records one warp holds in registers
-constexpr int TILE_MAX = 1 << 14;     // records per tile: 128 KB packed
+constexpr int TILE_MAX = 1 << 13;     // records per tile: 64 KB packed
 constexpr int TILE_THREADS = TILE_MAX / E;
 constexpr int GLOBAL_THREADS = 256;
 constexpr int FUSE_MAX = 6;           // substages a fused global pass runs
@@ -91,14 +90,14 @@ __device__ __forceinline__ void store_rec(uint32_t* k, uint32_t* v, u64* x,
 //   A: warp * WARP_SPAN + 32 * j + lane — distances 32..256 pair two
 //      registers of one thread;
 //   B: t + T * j — distances T..tile/2 pair two registers of one thread.
-// Other distances (WARP_SPAN..T/2: none for a 2^13 tile, 512 for a 2^14
-// tile) go through shared memory. Each layout gives each position to one thread, so a
-// switch is: store own positions, barrier, load own positions. C and A
+// T <= WARP_SPAN, so every distance below the tile has a layout. Each
+// layout gives each position to one thread, so a switch is: store own
+// positions, barrier, load own positions. C and A
 // hold the same WARP_SPAN records of a warp, so between them the warp's
 // barrier is enough. The tile runs in registers, where the compares are
 // integer instructions, and the most frequent distances (1..8 come up in
 // every window) cost no shuffle.
-enum Where { IN_SMEM, IN_A, IN_B, IN_C };
+enum Where { IN_A, IN_B, IN_C };
 
 // Shared-memory slot of tile position p: one pad slot after every 16, so
 // the 16 lanes of a half-warp hit 16 banks in every layout (C's lanes are
@@ -156,37 +155,16 @@ __device__ __forceinline__ void substages_ab(u64 (&x)[E], unsigned desc,
   if (on(1)) reg_pairs<1>(x, desc);
 }
 
-// One substage at distance d over the tile in shared memory. With PAIRS
-// > 0 each thread takes PAIRS pairs and loads them all before it compares
-// (PAIRS * blockDim = tile / 2); with PAIRS = 0 (tiles below WARP_SPAN)
-// threads loop over the pairs.
-template <int PAIRS>
+// One substage at distance d over a tile below WARP_SPAN records, in
+// shared memory: threads loop over the pairs.
 __device__ __forceinline__ void smem_substage(u64* s, int tile,
                                               bool desc_tile, int wl, int d) {
-  auto lower = [&](int p) { return ((p & ~(d - 1)) << 1) | (p & (d - 1)); };
-  if (PAIRS) {
-    u64 a[PAIRS > 0 ? PAIRS : 1], b[PAIRS > 0 ? PAIRS : 1];
-#pragma unroll
-    for (int q = 0; q < PAIRS; ++q) {
-      const int i = lower(q * blockDim.x + threadIdx.x);
-      a[q] = s[slot(i)];
-      b[q] = s[slot(i + d)];
-    }
-#pragma unroll
-    for (int q = 0; q < PAIRS; ++q) {
-      const int i = lower(q * blockDim.x + threadIdx.x);
-      cx(a[q], b[q], desc_at(desc_tile, wl, i));
-      s[slot(i)] = a[q];
-      s[slot(i + d)] = b[q];
-    }
-  } else {
-    for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
-      const int i = lower(p);
-      u64 a = s[slot(i)], b = s[slot(i + d)];
-      cx(a, b, desc_at(desc_tile, wl, i));
-      s[slot(i)] = a;
-      s[slot(i + d)] = b;
-    }
+  for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
+    const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
+    u64 a = s[slot(i)], b = s[slot(i + d)];
+    cx(a, b, desc_at(desc_tile, wl, i));
+    s[slot(i)] = a;
+    s[slot(i + d)] = b;
   }
   __syncthreads();
 }
@@ -204,7 +182,7 @@ __device__ __forceinline__ void advance(long long& w, long long& d, int k) {
 // the destination (kout, vout) if kout is set, else xout. A tile of at
 // least WARP_SPAN records runs with blockDim = tile / E in registers; a
 // smaller one (a short row) runs every substage in shared memory.
-__global__ void __launch_bounds__(TILE_THREADS)
+__global__ void __launch_bounds__(TILE_THREADS, 2)
 bitonic_tile(const uint32_t* kin, const uint32_t* vin, const u64* xin,
              uint32_t* kout, uint32_t* vout, u64* xout, long long b,
              int tile, long long w, long long d, int n) {
@@ -217,8 +195,8 @@ bitonic_tile(const uint32_t* kin, const uint32_t* vin, const u64* xin,
     for (int i = t; i < tile; i += T) s[slot(i)] = load_rec(kin, vin, xin, off + i);
     __syncthreads();
     for (; n > 0; --n, advance(w, d, 1))
-      smem_substage<0>(s, tile, (tile_base & w) != 0,
-                       w < tile ? (int)w : 0, (int)d);
+      smem_substage(s, tile, (tile_base & w) != 0, w < tile ? (int)w : 0,
+                    (int)d);
     for (int i = t; i < tile; i += T) store_rec(kout, vout, xout, off + i, s[slot(i)]);
     return;
   }
@@ -233,45 +211,31 @@ bitonic_tile(const uint32_t* kin, const uint32_t* vin, const u64* xin,
                        : (lay == IN_C ? slot(wbase + E * lane) + j
                                       : slot(t) + (T + T / 16) * j);
   };
+  // T <= WARP_SPAN: distances WARP_SPAN and up are all >= T
   auto layout_for = [&](long long dd) {
-    return dd < 32 ? IN_C
-                   : (dd < WARP_SPAN ? IN_A : (dd >= T ? IN_B : IN_SMEM));
+    return dd < 32 ? IN_C : (dd < WARP_SPAN ? IN_A : IN_B);
   };
   u64 x[E];
-  // device memory <-> registers in A or B (coalesced), or shared memory
+  // device memory <-> registers in A or B (coalesced)
   Where at = n > 0 && layout_for(d) != IN_C ? layout_for(d) : IN_A;
-  if (at == IN_SMEM) {
-    for (int i = t; i < tile; i += T) s[slot(i)] = load_rec(kin, vin, xin, off + i);
-    __syncthreads();
-  } else {
 #pragma unroll
-    for (int j = 0; j < E; ++j) x[j] = load_rec(kin, vin, xin, off + pos(at, j));
-  }
+  for (int j = 0; j < E; ++j) x[j] = load_rec(kin, vin, xin, off + pos(at, j));
   auto switch_to = [&](Where want) {  // own positions out, barrier, in
     if (want == at) return;
-    if (at != IN_SMEM) {
 #pragma unroll
-      for (int j = 0; j < E; ++j) s[slot_of(at, j)] = x[j];
-      if ((at == IN_A || at == IN_C) && (want == IN_A || want == IN_C))
-        __syncwarp();
-      else
-        __syncthreads();
-    }
+    for (int j = 0; j < E; ++j) s[slot_of(at, j)] = x[j];
+    if (want != IN_B && at != IN_B)
+      __syncwarp();
+    else
+      __syncthreads();
 #pragma unroll
-    for (int j = 0; j < E; ++j)  // in shared memory, x is dead
-      x[j] = want == IN_SMEM ? 0ull : s[slot_of(want, j)];
+    for (int j = 0; j < E; ++j) x[j] = s[slot_of(want, j)];
     at = want;
   };
   while (n > 0) {
     switch_to(layout_for(d));
     const bool desc_tile = (tile_base & w) != 0;
     const int wl = w < tile ? (int)w : 0;
-    if (at == IN_SMEM) {
-      smem_substage<E / 2>(s, tile, desc_tile, wl, (int)d);
-      --n;
-      advance(w, d, 1);
-      continue;
-    }
     // this window's substages from d down to the layout's last distance
     const long long stop = at == IN_C ? 1 : (at == IN_A ? 32 : T);
     int k = 0;
@@ -289,12 +253,8 @@ bitonic_tile(const uint32_t* kin, const uint32_t* vin, const u64* xin,
     advance(w, d, k);
   }
   if (at == IN_C) switch_to(IN_A);  // C is not coalesced in device memory
-  if (at == IN_SMEM) {  // the last substage ended with a barrier
-    for (int i = t; i < tile; i += T) store_rec(kout, vout, xout, off + i, s[slot(i)]);
-  } else {
 #pragma unroll
-    for (int j = 0; j < E; ++j) store_rec(kout, vout, xout, off + pos(at, j), x[j]);
-  }
+  for (int j = 0; j < E; ++j) store_rec(kout, vout, xout, off + pos(at, j), x[j]);
 }
 
 // R substages d, d/2, .., d/2^(R-1) (= s = 2^log_s) of window w, in place
