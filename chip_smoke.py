@@ -16,13 +16,17 @@ Run from the repo root on a machine with one H100. It
      device ms amortized over a run of back-to-back calls that rotate
      over copies of the inputs larger than the L2 together (so each
      call finds its inputs cold), kernel and library in turns, and the
-     host µs of one wrapper call on its own;
+     host µs of one wrapper call on its own; beside them an empty
+     kernel's launch (the launch floor) and one whole reduce window
+     through merge_fragments_device (host µs);
   4. runs the port's out-of-core CloudSort at 2^20 records on the card and
      on the CPU, with both reduce merges: the output etags must agree;
   5. runs the full sort — 100-byte records, 4 waves of 2^24 records
      (W = 8, 2 rounds, R1 = 4, reduce_merge_impl="device") through
      repro_torch.examples.cloudsort_oocore.main — with valsort, counting
-     every kernel's launches on that run alone;
+     every kernel's launches on that run alone and the reduce windows
+     merged on the card (one indexed-merge launch each); then splits one
+     window of the run's mean size into its host steps;
   6. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
      line and, last, the `ok` line.
 
@@ -112,6 +116,21 @@ def device_ms(fn, copies, calls, host_s) -> float:
     return s.elapsed_time(e) / calls
 
 
+def fragments(rng, keys, pw):
+    """A reduce window as merge_fragments takes it: for each uint32 key
+    array, [(keys, ids, payload, k64)] sorted on (key, id), with random
+    ids in 0..3 and pw random payload words a record."""
+    out = []
+    for k in keys:
+        i = rng.integers(0, 4, k.size).astype(np.uint32)
+        k64 = k.astype(np.uint64) << np.uint64(32) | i
+        o = np.argsort(k64, kind="stable")
+        p = rng.integers(0, 2**32, (k.size, pw), dtype=np.uint64).astype(
+            np.uint32)
+        out.append((k[o], i[o], p[o], k64[o]))
+    return out
+
+
 def probe_u32():
     """Which torch dtype and view round-trip uint32 bits on the card."""
     bits = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
@@ -199,15 +218,18 @@ def phase_kernels(plan):
     """Each kernel at the main path's shapes against its plain version on
     the card (bit-identical), plus small adversarial cases; times."""
     from repro_torch.kernels import ops, ref, u32
+    from repro_torch.kernels import _build, kway_merge
     from repro_torch.kernels.bitonic_sort import (bitonic_sort_blocks,
                                                   bitonic_sort_blocks_plain,
                                                   sort_plan)
     from repro_torch.kernels.kway_merge import (
+        kway_merge_indexed, kway_merge_indexed_plain,
         merge_sorted_pairs_indexed, merge_sorted_pairs_indexed_plain)
     from repro_torch.kernels.merge_sorted import (merge_sorted_pairs,
                                                   merge_sorted_pairs_plain)
     from repro_torch.kernels.range_partition import (
         partition_offsets_blocks, partition_offsets_blocks_plain)
+    from repro_torch.shuffle.runtime import merge_fragments
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
@@ -259,6 +281,24 @@ def phase_kernels(plan):
         out.copy_(t)
         return out
 
+    def window(case, k, L, fill):
+        """A (K, L) window of triples on the CPU as merge_fragments_device
+        pads it: round(fill * K) runs of real records (at least one),
+        ordinals counting across them, then pads."""
+        live = max(1, round(fill * k))
+        total = live * L
+        keys = np.full((k, L), 0xFFFFFFFF, np.uint32)
+        vals = keys.copy()
+        idx = np.full((k, L), total, np.int32)
+        for r in range(live):
+            kk = draw(case, (L,))
+            vv = rng.integers(0, 3, L).astype(np.uint32)
+            order = np.lexsort((vv, kk))
+            keys[r], vals[r] = kk[order], vv[order]
+            idx[r] = np.arange(r * L, (r + 1) * L)
+        return (u32.from_numpy(keys, "cpu"), u32.from_numpy(vals, "cpu"),
+                torch.from_numpy(idx))
+
     bound_sets = ([], [3], [1, 2**31], [0, 0, 5, 5, 0xFFFFFFFF],
                   sorted(rng.integers(0, 2**32, 12).tolist()),
                   list(range(100)))  # R = 0, 1, 2, 5, 12, 100
@@ -295,16 +335,47 @@ def phase_kernels(plan):
                                 (partition_offsets_blocks(keys, bt),),
                                 (partition_offsets_blocks_plain(keys, bt),))
                     n_checks += 1
-        for shape in ((1, 1), (5, 4), (3, 256), (2, 4096), (1, 1 << 15)):
+        # merge: rows below one tile (2L < 2048 outputs), at it and above;
+        # aligned rows (16-byte path) and misaligned ones (4-byte path)
+        for shape in ((1, 1), (5, 2), (5, 4), (3, 256), (2, 1024), (2, 4096),
+                      (1, 1 << 15)):
             a, b = cpu_sorted(case, shape), cpu_sorted(case, shape)
             got_m = merge_sorted_pairs(*(t.to(dev) for t in a + b))
             check_equal("merge", got_m, merge_sorted_pairs_plain(*a, *b))
+            got_m = merge_sorted_pairs(*(misaligned(t.to(dev)) for t in a + b))
+            check_equal("merge-misaligned", got_m,
+                        merge_sorted_pairs_plain(*a, *b))
+            n_checks += 2
             ai = torch.arange(a[0].numel(), dtype=torch.int32).reshape(shape)
             trip = (a[0], a[1], ai, b[0], b[1], ai + a[0].numel())
             got_i = merge_sorted_pairs_indexed(*(t.to(dev) for t in trip))
             check_equal("merge-idx", got_i,
                         merge_sorted_pairs_indexed_plain(*trip))
-            n_checks += 2
+            n_checks += 1
+        # the K-way window, one launch, against the plain tournament:
+        # windows padded as merge_fragments_device pads them (ordinals,
+        # then lex-max pads with ordinal = total; whole runs of pads too)
+        for k in (2, 4, 8):
+            for L in (1, 64, 4096):
+                for fill in (1.0, 0.6):
+                    keys, vals, idx = window(case, k, L, fill)
+                    got_w = kway_merge_indexed(keys.to(dev), vals.to(dev),
+                                               idx.to(dev))
+                    check_equal("kway-window", got_w,
+                                kway_merge_indexed_plain(keys, vals, idx))
+                    n_checks += 1
+        # whole windows through merge_fragments_device, against the numpy
+        # merge the host reduce runs: empty and one-record fragments,
+        # duplicates, keys equal to the pad
+        for sizes in ((97, 1, 256, 33, 0, 128), (5, 9), (3000, 0, 2000, 7)):
+            frags = fragments(rng, [draw(case, (n,)) for n in sizes], 3)
+            want = merge_fragments(frags, 3)
+            got = kway_merge.merge_fragments_device(frags, 3, device=dev)
+            for g, w in zip(got, want):
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"merge_fragments_device {case} "
+                                         f"{sizes}: differs from numpy")
+            n_checks += 1
     for n in (1, 2, 100, 1000, 5000, 70000):  # non-pow2 sort_kv through ops
         k, v = rand((n,)), rand((n,), 4)
         check_equal("sort_kv", ops.sort_kv(k, v),
@@ -395,21 +466,77 @@ def phase_kernels(plan):
                (torch.cat([u32.pack(*a), u32.pack(*bb)], dim=-1),),
                32 * n * L, 2 * n * L, listed=i == 0)
         del a, bb
-    # indexed merge: one reduce emit window's first tournament round
-    # (a window holds at most one merge_chunk_bytes chunk of each of the
-    # WAVES runs of a partition: K = next_pow2(WAVES) rows of L records)
-    n = ops.next_pow2(WAVES) // 2
-    L = ops.next_pow2(plan.merge_chunk_bytes // plan.record_bytes)
-    a, bb = sorted_rows((n, L)), sorted_rows((n, L))
-    ai = torch.arange(n * L, dtype=torch.int32, device=dev).reshape(n, L)
-    record("merge_sorted_pairs_indexed", csrc + "kway_merge.cu",
-           "src/repro/kernels/kway_merge.py:126", [n, L],
-           (a[0], a[1], ai, bb[0], bb[1], ai + n * L),
-           merge_sorted_pairs_indexed, merge_sorted_pairs_indexed_plain,
-           lambda c: torch.sort(c, dim=-1, stable=True),
-           (torch.cat([u32.pack(*a), u32.pack(*bb)], dim=-1),),
-           48 * n * L, 2 * n * L)
+    # the launch floor: an empty kernel, launched through the same ctypes
+    # path, timed like the kernels (back-to-back calls between events)
+    noop = _build.function("noop")
+
+    def empty():
+        noop(torch.cuda.current_stream().cuda_stream)
+
+    floor_host = host_us(empty, ())
+    floor_ms = statistics.mean(device_ms(empty, [()], TIMED_CALLS,
+                                         floor_host * 1e-6) for _ in range(2))
+    emit(phase="kernel.launch_floor", ms=floor_ms, host_us=floor_host)
+    # indexed merge: one reduce emit window, K = next_pow2(WAVES) runs of L
+    # records, all K in one launch. The full run's windows hold ~10^4
+    # records (L ~ 2^12); 2^14 is the most a 1 MiB merge chunk allows.
+    k = ops.next_pow2(WAVES)
+    for i, L in enumerate((1 << 12, 1 << 14)):
+        a = sorted_rows((k, L))
+        ai = torch.arange(k * L, dtype=torch.int32, device=dev).reshape(k, L)
+        inputs = (a[0], a[1], ai)
+        warm = device_ms(kway_merge_indexed, [inputs], TIMED_CALLS,
+                         host_us(kway_merge_indexed, inputs) * 1e-6)
+        record("merge_sorted_pairs_indexed", csrc + "kway_merge.cu",
+               "src/repro/kernels/kway_merge.py:126", [k, L], inputs,
+               kway_merge_indexed, kway_merge_indexed_plain,
+               lambda c: torch.sort(c, dim=-1, stable=True),
+               (u32.pack(*a).reshape(1, -1),), 24 * k * L,
+               k * L * (k.bit_length() - 1), listed=i == 0, warm_ms=warm,
+               launch_floor_ms=floor_ms)
+        del a, ai, inputs
+    # one whole merge_fragments_device call at (4, 2^12): k fragments of
+    # L records and the full run's payload rows, host µs including the
+    # copies, the launch, the synchronise and the payload gather
+    L = 1 << 12
+    frags = fragments(rng, [draw("random", (L,)) for _ in range(k)],
+                      plan.payload_words)
+    call = lambda: kway_merge.merge_fragments_device(  # noqa: E731
+        frags, plan.payload_words, device=dev)
+    emit(phase="kernel.window", shape=[k, L],
+         payload_words=plan.payload_words, host_us=host_us(call, ()))
     return rows
+
+
+def phase_window_split(plan, mean_records):
+    """Host µs of each step of one reduce window at the full run's mean
+    size (WAVES fragments, the plan's payload): merge_fragments_device's
+    own split (pad, H2D, kernel, D2H, payload gather; the card
+    synchronised after each step), then encode_body. Medians of 20."""
+    from repro_torch.io import records as rec
+    from repro_torch.kernels.kway_merge import merge_fragments_device
+
+    rng = np.random.default_rng(SEED)
+    n, pw = max(1, round(mean_records / WAVES)), plan.payload_words
+    frags = fragments(rng, [rng.integers(0, 2**32, n, dtype=np.uint64)
+                            .astype(np.uint32) for _ in range(WAVES)], pw)
+    steps, whole = {}, []
+    for _ in range(20):
+        split = {}
+        mk, mi, mp = merge_fragments_device(frags, pw, device=DEVICE,
+                                            split=split)
+        t0 = time.perf_counter()
+        rec.encode_body(mk, mi, mp)
+        split["encode_body"] = (time.perf_counter() - t0) * 1e6
+        for step, us in split.items():
+            steps.setdefault(step, []).append(us)
+        t0 = time.perf_counter()
+        merge_fragments_device(frags, pw, device=DEVICE)
+        whole.append((time.perf_counter() - t0) * 1e6)
+    emit(phase="window.split", fragments=WAVES, records=WAVES * n,
+         payload_words=pw,
+         host_us={k: statistics.median(v) for k, v in steps.items()},
+         call_host_us=statistics.median(whole))
 
 
 def full_plan():
@@ -546,22 +673,34 @@ def run(log):
          reduce_memory_budget_bytes=full.reduce_memory_budget_bytes,
          store_chunk_bytes=full.store_chunk_bytes,
          output_part_records=full.output_part_records)
+    from repro_torch.kernels import kway_merge
+
     for fn in wrappers.values():
         fn.launches = 0
+    kway_merge.merge_fragments_device.windows = 0
+    kway_merge.merge_fragments_device.records = 0
     torch.cuda.synchronize()
     out = run_example(
         ["--records", str(records), "--waves", str(WAVES), "--no-faults",
          "--device", DEVICE, "--store", store], full, log)
     torch.cuda.synchronize()
     launches = {n: fn.launches for n, fn in wrappers.items()}
+    windows = kway_merge.merge_fragments_device.windows
+    window_records = kway_merge.merge_fragments_device.records
     shutil.rmtree(store, ignore_errors=True)
     emit(phase="full", **{k: v for k, v in out.items() if k != "store"},
-         launches=launches, device=name)
+         launches=launches, device_merged_windows=windows,
+         window_mean_records=window_records / max(windows, 1), device=name)
     if not out["valsort_ok"]:
         raise AssertionError("full run: valsort failed")
     for n, c in launches.items():
         if c <= 0:
             raise AssertionError(f"full run: kernel {n} was never launched")
+    if launches["merge_sorted_pairs_indexed"] != windows:
+        raise AssertionError(
+            f"full run: {launches['merge_sorted_pairs_indexed']} indexed "
+            f"merge launches for {windows} windows of >= 2 fragments")
+    phase_window_split(full, window_records / windows)
 
     # ---- 6. the kernels line, then the ok line ----
     for row in rows:

@@ -6,16 +6,18 @@
 A and B are checkout roots (for example an older commit unpacked with
 `git archive` into a git-ignored directory, and this one). The turns run
 A, B, B, A, N times over, each in a process of its own whose
-`repro_torch` is that checkout's. A turn builds the checkout's kernels,
-times its map sort and its partition at the main path's shape (8, 2^20)
-x 7 bounds and its indexed merge at one reduce window's shape (2, 16384)
-with chip_smoke.py's timer (device ms a call over 20 back-to-back
-cold-L2 calls; host µs of one wrapper call for the indexed merge, which
-the reduce calls ~10^4 times a run), then runs chip_smoke.py's full sort
-(4 waves of 2^24 100-byte records, valsort included) and prints one JSON
-line. The last line holds each checkout's mean over its turns. The
-timer and the full plan come from this checkout's chip_smoke.py, so both
-checkouts are held to the same yardstick.
+`repro_torch` is that checkout's. A turn builds the checkout's kernels
+and times, with chip_smoke.py's timer (device ms a call over 20
+back-to-back cold-L2 calls): its map sort and its partition at the main
+path's shape (8, 2^20) x 7 bounds; its merge tournament at the first
+round's (32, 2^18) and stage 2's (8, 2^21); its reduce window merge
+(`kway_merge_indexed`) at (4, 2^12) and (4, 2^14), with the host µs of
+one call; and the host µs of one whole `merge_fragments_device` window
+at (4, 2^12) with the full run's payload. Then it runs chip_smoke.py's
+full sort (4 waves of 2^24 100-byte records, valsort included) and
+prints one JSON line. The last line holds each checkout's mean over its
+turns. The timer and the full plan come from this checkout's
+chip_smoke.py, so both checkouts are held to the same yardstick.
 """
 import argparse
 import contextlib
@@ -28,8 +30,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
-METRICS = ("sort_ms", "partition_ms", "merge_idx_ms", "merge_idx_host_us",
-           "sort_s", "map_s", "reduce_s", "map_device_sort_s",
+METRICS = ("sort_ms", "partition_ms", "merge_ms_2^18", "merge_ms_2^21",
+           "window_ms_2^12", "window_ms_2^14", "window_host_us_2^12",
+           "window_host_us_2^14", "merge_fragments_host_us", "sort_s",
+           "map_s", "reduce_s", "map_device_sort_s",
            "reduce_device_merge_s", "records_per_s")
 
 
@@ -44,7 +48,9 @@ def turn(tree: str, log_dir: str, tag: str) -> dict:
     from repro_torch.examples import cloudsort_oocore
     from repro_torch.kernels import _build, ops, u32
     from repro_torch.kernels.bitonic_sort import bitonic_sort_blocks
-    from repro_torch.kernels.kway_merge import merge_sorted_pairs_indexed
+    from repro_torch.kernels.kway_merge import (kway_merge_indexed,
+                                                merge_fragments_device)
+    from repro_torch.kernels.merge_sorted import merge_sorted_pairs
     from repro_torch.kernels.range_partition import partition_offsets_blocks
 
     _build.function("bitonic_sort")  # builds every kernel of the checkout
@@ -56,6 +62,10 @@ def turn(tree: str, log_dir: str, tag: str) -> dict:
     def rand(shape):
         return u32.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64)
                               .astype(np.uint32), dev)
+
+    def sorted_rows(shape):
+        return u32.unpack(torch.sort(u32.pack(rand(shape), rand(shape)),
+                                     dim=-1)[0])
 
     k, v = rand((w, b)), rand((w, b))
     wb = KeySpace(num_reducers=w * plan.reducers_per_worker,
@@ -71,13 +81,23 @@ def turn(tree: str, log_dir: str, tag: str) -> dict:
     sk = bitonic_sort_blocks(k, v)[0]
     row["partition_ms"] = ms(partition_offsets_blocks, (sk, wb))[0]
     del k, v, sk
-    n = ops.next_pow2(cs.WAVES) // 2
-    L = ops.next_pow2(plan.merge_chunk_bytes // plan.record_bytes)
-    a, c = (u32.unpack(torch.sort(u32.pack(rand((n, L)), rand((n, L))),
-                                  dim=-1)[0]) for _ in range(2))
-    ai = torch.arange(n * L, dtype=torch.int32, device=dev).reshape(n, L)
-    row["merge_idx_ms"], row["merge_idx_host_us"] = ms(
-        merge_sorted_pairs_indexed, (a[0], a[1], ai, c[0], c[1], ai + n * L))
+    for n, lb in ((32, 18), (8, 21)):
+        row[f"merge_ms_2^{lb}"] = ms(merge_sorted_pairs,
+                                     (*sorted_rows((n, 1 << lb)),
+                                      *sorted_rows((n, 1 << lb))))[0]
+        torch.cuda.empty_cache()
+    kw = ops.next_pow2(cs.WAVES)
+    for lb in (12, 14):
+        idx = torch.arange(kw << lb, dtype=torch.int32,
+                           device=dev).reshape(kw, 1 << lb)
+        row[f"window_ms_2^{lb}"], row[f"window_host_us_2^{lb}"] = ms(
+            kway_merge_indexed, (*sorted_rows((kw, 1 << lb)), idx))
+    frags = cs.fragments(rng, [rng.integers(0, 2**32, 1 << 12,
+                                            dtype=np.uint64).astype(np.uint32)
+                               for _ in range(kw)], plan.payload_words)
+    row["merge_fragments_host_us"] = cs.host_us(
+        lambda: merge_fragments_device(frags, plan.payload_words,
+                                       device=dev), ())
     torch.cuda.empty_cache()
 
     store = os.path.join(ROOT, "build", "compare", "store")

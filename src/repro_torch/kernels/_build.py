@@ -30,15 +30,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-#: source name -> (C entry point, argtypes); the last argument is the stream.
+#: entry name -> (source csrc/<source>.cu, C symbol, argtypes); the last
+#: argument is the stream.
 SIGNATURES = {
-    "bitonic_sort": ("rt_bitonic_sort",
+    "bitonic_sort": ("bitonic_sort", "rt_bitonic_sort",
                      [_P] * 5 + [_LL, _LL, _LL, _P, _I, _P]),
-    "range_partition": ("rt_partition_offsets",
+    "range_partition": ("range_partition", "rt_partition_offsets",
                         [_P] * 5 + [_LL, _LL, _I, _I, _P]),
-    "merge_sorted": ("rt_merge_pairs", [_P] * 6 + [_LL, _LL, _P]),
-    "kway_merge": ("rt_merge_pairs_indexed", [_P] * 9 + [_LL, _LL, _P]),
+    "merge_sorted": ("merge_sorted", "rt_merge_pairs",
+                     [_P] * 6 + [_LL, _LL, _LL, _P]),
+    "kway_merge": ("kway_merge", "rt_kway_merge_indexed",
+                   [_P] * 9 + [_LL] * 4 + [_P]),
+    "noop": ("kway_merge", "rt_noop", [_P]),
 }
+SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -70,7 +75,7 @@ def build() -> Path:
     """Compile every csrc/*.cu (in parallel) unless this source hash is
     already built; returns the directory holding the libraries."""
     out = BUILD_ROOT / source_hash()
-    libs = {n: out / f"lib{n}.so" for n in SIGNATURES}
+    libs = {n: out / f"lib{n}.so" for n in SOURCES}
     if all(p.exists() for p in libs.values()):
         return out
     nvcc = _nvcc()
@@ -98,24 +103,27 @@ def build() -> Path:
 
 
 def function(name: str):
-    """The bound C entry point of csrc/<name>.cu (building on first use)."""
+    """The bound C entry point `name` of SIGNATURES (building on first
+    use)."""
     fn = _fns.get(name)
     if fn is None:
         with _lock:
             if not _fns:
                 out = build()
                 build_info["dir"] = str(out)
-                for src, (sym, argtypes) in SIGNATURES.items():
-                    f = getattr(ctypes.CDLL(str(out / f"lib{src}.so")), sym)
+                libs = {src: ctypes.CDLL(str(out / f"lib{src}.so"))
+                        for src in SOURCES}
+                for entry, (src, sym, argtypes) in SIGNATURES.items():
+                    f = getattr(libs[src], sym)
                     f.argtypes = argtypes
                     f.restype = ctypes.c_int
-                    _fns[src] = f
+                    _fns[entry] = f
             fn = _fns[name]
     return fn
 
 
 def prepare(name: str, dev: torch.device):
-    """csrc/<name>.cu's entry point for a launch on `dev`: raises on a
+    """The entry point `name` for a launch on `dev`: raises on a
     card below capability (9, 0) (read once per device) and, through
     `function`, on a failed build."""
     if dev not in _hopper:
@@ -127,7 +135,7 @@ def prepare(name: str, dev: torch.device):
 
 
 def launch(name: str, *args) -> None:
-    """Call csrc/<name>.cu's entry point on the current stream of the
+    """Call the entry point `name` on the current stream of the
     first tensor's device. Tensors pass as data_ptr(); raises on a card
     below capability (9, 0) and on a non-zero cudaGetLastError()
     returned by the C side. A device context is entered only when the
@@ -146,8 +154,9 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`. Reduce sinks launch from several
-    threads, and `+=` on an attribute is not atomic."""
+def count_launch(wrapper, attr: str = "launches", n: int = 1) -> None:
+    """Add n to the count `wrapper.<attr>` (by default its launches).
+    Reduce sinks launch from several threads, and `+=` on an attribute is
+    not atomic."""
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)

@@ -4,8 +4,11 @@ Port of the TPU kernel src/repro/kernels/merge_sorted.py
 (`merge_sorted_pairs`): row i of a merged with row i of b, (n, L) +
 (n, L) -> (n, 2L). ops.kway_merge drives it as a tournament.
 
-  * the CUDA kernel, csrc/merge_sorted.cu — a merge path: per-thread
-    binary search of its output diagonal, then a sequential merge;
+  * the CUDA kernel, csrc/merge_sorted.cu — a tiled merge path: a block
+    of THREADS threads owns TILE consecutive outputs, finds its window
+    of a and b with a warp-wide search (LANES splits a step), stages it
+    in shared memory, and each thread merges ITEMS outputs (the source
+    says why; tests/test_torch_merge_plan.py replays its co-ranks);
   * the plain version — the reference's network: a ++ reversed(b) is
     bitonic, and one pass of ascending compare-exchanges from distance L
     down to 1 sorts it (packed int64 carriers, min/max).
@@ -19,6 +22,11 @@ import torch
 
 from repro_torch.kernels import _build, u32
 from repro_torch.kernels.bitonic_sort import _compare_exchange
+
+# The kernel's THREADS, ITEMS and LANES: the C entry point refuses a
+# launch whose tile, min(2L, TILE), is not its own.
+THREADS, ITEMS, LANES = 256, 8, 32
+TILE = THREADS * ITEMS
 
 
 def merge_network(packed: torch.Tensor) -> torch.Tensor:
@@ -55,7 +63,7 @@ def merge_sorted_pairs(a_keys: torch.Tensor, a_vals: torch.Tensor,
     ok = torch.empty((n, 2 * run), dtype=a_keys.dtype, device=a_keys.device)
     ov = torch.empty_like(ok)
     _build.launch("merge_sorted", a_keys, a_vals, b_keys, b_vals, ok, ov,
-                  n, run)
+                  n, run, min(2 * run, TILE))
     _build.count_launch(merge_sorted_pairs)
     return ok, ov
 
