@@ -18,7 +18,8 @@ Run from the repo root on a machine with one H100. It
      call finds its inputs cold), kernel and library in turns, and the
      host µs of one wrapper call on its own; beside them an empty
      kernel's launch (the launch floor) and one whole reduce window
-     through merge_fragments_device (host µs);
+     through merge_fragments_device (host µs); and, unlisted, the sort at
+     the payload path's (8, 2^21);
   4. runs the port's out-of-core CloudSort at 2^20 records on the card and
      on the CPU, with both reduce merges: the output etags must agree;
   5. runs the full sort — 100-byte records, 4 waves of 2^24 records
@@ -27,8 +28,35 @@ Run from the repo root on a machine with one H100. It
      every kernel's launches on that run alone and the reduce windows
      merged on the card (one indexed-merge launch each); then splits one
      window of the run's mean size into its host steps;
-  6. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
-     line and, last, the `ok` line.
+  6. the whole-record payload modes (core/exoshuffle.
+     distributed_sort_payload, W = 8, 23 payload words): `payload.identity`
+     holds both modes on the card against the CPU's plain versions at
+     2^20 records; `payload.split` splits one call of each mode at 2^24
+     records by kernel (torch.profiler), beside the map sort's device ms
+     on the phase's own rows; `payload.full` runs 5 calls of each at
+     2^24 records (1.68 GB, one round, blocks of 2^19): the median and
+     range of their seconds, peak device memory and valsort of the last
+     output; then the e2e example's twin at its defaults;
+  7. `fleet`: the out-of-core sort of 2^24 records in 4 waves with the
+     device merge, by a thread fleet and by 4 ProcessWorkers on the card
+     (each child its own CUDA context) under the elastic driver, clean
+     and with one child killed: output etags identical, valsort clean;
+  8. `recursive`: the skew pass (sampled boundaries, recursive rounds) on
+     2^20 zipf-keyed records, on the card and on the CPU: etags identical;
+  9. `cloud`: a FunctionWorker fleet over FakeS3Backend on the card at
+     2^20 records with invocation kills: etags identical to a thread
+     fleet's;
+ 10. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
+     line (each kernel's launches on the full run, and per phase) and,
+     last, the `ok` line.
+
+Each of the phases 5-9 zeroes every kernel's launch count just before
+its runs and reads it just after (a process fleet's children report
+theirs at each phase end), and fails if a kernel of its path never
+launched. Then (`<phase>.hold`) it holds each kernel bit-identical to
+its plain version on the card at every shape the phase launched it at
+(the wrappers record their launch shapes; children report theirs too),
+on fresh random inputs.
 
 Every other stdout line is one JSON object. Any failure exits non-zero
 without the `ok` line; so does a machine without a CUDA card, or a
@@ -61,7 +89,12 @@ NUM_WORKERS = 8  # W of the example (the reference's 8-device mesh)
 WAVES = 4  # map waves of the full run: 4x out of core
 FULL_WAVE_RECORDS = 1 << 24  # 1.68 GB of 100-byte records: the paper's block
 IDENTITY_RECORDS = 1 << 20
+PAYLOAD_WORDS = 23  # 100-byte records
+PAYLOAD_TIMED_CALLS = 5  # back-to-back payload calls of each mode
+FLEET_WORKERS = 4
+FLEET_KILL_AFTER = 3  # the killed child dies at its 4th task pop
 DEVICE = "cuda"
+BUCKET = "cloudsort"
 
 
 def emit(**obj):
@@ -179,6 +212,25 @@ def kernel_split(fn, *args):
         return name.replace("void ", "").strip()
 
     return [[short(e.name), e.time_range.elapsed_us()] for e in evs]
+
+
+#: Name prefixes of this port's kernels in a profiler trace.
+OUR_KERNELS = ("bitonic_tile", "bitonic_global", "partition_count",
+               "merge_tiles", "kway_rank_scatter")
+
+
+def device_split(fn, *args):
+    """Device µs of one fn(*args) call from kernel_split, grouped by
+    kernel name (template arguments dropped): the total, this port's
+    kernels' share, and the eight largest groups."""
+    per = {}
+    for name, us in kernel_split(fn, *args):
+        base = name.split("<")[0].split("::")[-1]
+        per[base] = per.get(base, 0.0) + us
+    return {"device_us": sum(per.values()),
+            "our_kernels_us": sum(us for n, us in per.items()
+                                  if n.startswith(OUR_KERNELS)),
+            "top_us": sorted(per.items(), key=lambda kv: -kv[1])[:8]}
 
 
 def ptxas_summary(logs):
@@ -439,6 +491,17 @@ def phase_kernels(plan):
     split = kernel_split(bitonic_sort_blocks, k, v)
     emit(phase="kernel.split", name="bitonic_sort_blocks", plan=sort_plan(b),
          kernels=split, device_us=sum(t for _, t in split))
+    # the payload path's sort (one round of one paper block over W
+    # workers), unlisted: its time beside the listed row's
+    b2 = FULL_WAVE_RECORDS // w
+    k2, v2 = rand((nb, b2)), rand((nb, b2))
+    record("bitonic_sort_blocks", csrc + "bitonic_sort.cu",
+           "src/repro/kernels/bitonic_sort.py:97", [nb, b2], (k2, v2),
+           bitonic_sort_blocks, bitonic_sort_blocks_plain,
+           lambda p: torch.sort(p, dim=-1), (u32.pack(k2, v2),),
+           16 * nb * b2, nb * b2 * (b2.bit_length() - 1),
+           listed=False, passes=len(sort_plan(b2)))
+    del k2, v2
     # partition (W, per_round) x W-1 worker boundaries, on sorted rows
     from repro_torch.core.keyspace import KeySpace
 
@@ -555,9 +618,493 @@ def full_plan():
 def layout(root, prefix="output/"):
     from repro_torch.io.backends import FilesystemBackend
 
-    fs = FilesystemBackend(os.path.join(root, "durable"))
+    return store_layout(FilesystemBackend(os.path.join(root, "durable")),
+                        prefix)
+
+
+def store_layout(store, prefix="output/"):
     return [(m.key, m.etag, m.size, m.parts)
-            for m in fs.list_objects("cloudsort", prefix)]
+            for m in store.list_objects(BUCKET, prefix)]
+
+
+def zero_launches(wrappers):
+    """Every wrapper's launch count to 0 and its set of shapes emptied."""
+    for fn in wrappers.values():
+        fn.launches = 0
+        fn.shapes = set()
+    torch.cuda.synchronize()
+
+
+def read_launches(wrappers, extra=()):
+    """Each wrapper's launch count, plus the counts in `extra` (dicts
+    reported by other processes)."""
+    torch.cuda.synchronize()
+    out = {n: fn.launches for n, fn in wrappers.items()}
+    for counts in extra:
+        for n, c in counts.items():
+            out[n] += c
+    return out
+
+
+def require_launched(phase, launches, names):
+    for n in names:
+        if launches[n] <= 0:
+            raise AssertionError(f"{phase}: kernel {n} was never launched")
+
+
+def hold_shapes(phase, wrappers, extra=()):
+    """Each kernel bit-identical to its plain version on the card at every
+    shape the phase launched it at: the wrappers' `shapes`, and those in
+    `extra` (dicts of shapes reported by other processes), on fresh
+    random inputs, rows sorted where the kernel takes sorted rows. Run
+    after the phase's launches are read: these launches are not counted.
+    """
+    from repro_torch.kernels import u32
+    from repro_torch.kernels.bitonic_sort import bitonic_sort_blocks_plain
+    from repro_torch.kernels.kway_merge import (
+        kway_merge_indexed, kway_merge_indexed_plain,
+        merge_sorted_pairs_indexed_plain)
+    from repro_torch.kernels.merge_sorted import merge_sorted_pairs_plain
+    from repro_torch.kernels.range_partition import (
+        partition_offsets_blocks_plain)
+
+    shapes = {n: set(fn.shapes) for n, fn in wrappers.items()}
+    for more in extra:
+        for n, got in more.items():
+            shapes[n] |= {tuple(sh) for sh in got}
+    rng = np.random.default_rng(SEED)
+    dev = torch.device(DEVICE)
+
+    def rand(shape):
+        return u32.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64)
+                              .astype(np.uint32), dev)
+
+    def sorted_rows(shape):
+        packed, _ = torch.sort(u32.pack(rand(shape), rand(shape)), dim=-1)
+        return u32.unpack(packed)
+
+    def label(name, shape):
+        return f"{phase}: {name} at {list(shape)}"
+
+    for shape in sorted(shapes["bitonic_sort_blocks"]):
+        k, v = rand(shape), rand(shape)
+        check_equal(label("sort", shape),
+                    wrappers["bitonic_sort_blocks"](k, v),
+                    bitonic_sort_blocks_plain(k, v))
+    for nb, b, r in sorted(shapes["partition_offsets_blocks"]):
+        keys = sorted_rows((nb, b))[0]
+        bounds = u32.from_numpy(np.sort(rng.integers(
+            0, 2**32, r, dtype=np.uint64)).astype(np.uint32), dev)
+        check_equal(label("partition", (nb, b, r)),
+                    (wrappers["partition_offsets_blocks"](keys, bounds),),
+                    (partition_offsets_blocks_plain(keys, bounds),))
+    for shape in sorted(shapes["merge_sorted_pairs"]):
+        a, b = sorted_rows(shape), sorted_rows(shape)
+        check_equal(label("merge", shape),
+                    wrappers["merge_sorted_pairs"](*a, *b),
+                    merge_sorted_pairs_plain(*a, *b))
+    for n, k, L in sorted(shapes["merge_sorted_pairs_indexed"]):
+        # rows sorted on (key, val) with ordinals rising along each row
+        # are sorted on (key, val, idx)
+        keys, vals = sorted_rows((n * k, L))
+        idx = torch.arange(n * k * L, dtype=torch.int32,
+                           device=dev).reshape(n * k, L)
+        if n == 1:  # one window of K runs (kway_merge_indexed)
+            got = kway_merge_indexed(keys, vals, idx)
+            want = kway_merge_indexed_plain(keys, vals, idx)
+        elif k == 2:  # n pairs (merge_sorted_pairs_indexed)
+            trip = tuple(t[i::2].contiguous() for i in (0, 1)
+                         for t in (keys, vals, idx))
+            got = wrappers["merge_sorted_pairs_indexed"](*trip)
+            want = merge_sorted_pairs_indexed_plain(*trip)
+        else:
+            raise AssertionError(f"{phase}: no wrapper launches the indexed "
+                                 f"merge at n={n}, K={k}")
+        check_equal(label("indexed merge", (n, k, L)), got, want)
+    torch.cuda.empty_cache()
+    held = {n: [list(sh) for sh in sorted(s)] for n, s in shapes.items()}
+    emit(phase=f"{phase}.hold", shapes=held,
+         checks=sum(len(s) for s in held.values()), identical=True)
+
+
+def phase_payload_identity():
+    """Both payload modes at IDENTITY_RECORDS on the card and on
+    the CPU (plain versions): keys, ids, valid counts and the overflow
+    flag bit-identical; payload rows whole in the through mode, each
+    worker's valid prefix in the late mode (the reference leaves pad
+    rows unspecified there; whether they agree too is reported)."""
+    from repro_torch.core.exoshuffle import (ShuffleConfig,
+                                             distributed_sort_payload)
+    from repro_torch.data import gensort
+    from repro_torch.kernels import u32
+
+    n, w = IDENTITY_RECORDS, NUM_WORKERS
+    keys, ids = gensort.gen_keys(0, n, "cpu")
+    payload = gensort.gen_payload(ids, PAYLOAD_WORDS)
+    keys, ids, payload = (u32.to_numpy(t) for t in (keys, ids, payload))
+    cfg = ShuffleConfig(num_workers=w, reducers_per_worker=4)
+    for mode in ("through", "late"):
+        outs, secs = {}, {}
+        for device in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            sk, si, sp, vc, ovf = distributed_sort_payload(
+                keys, ids, payload, num_workers=w, mode=mode, cfg=cfg,
+                device=device)
+            outs[device] = (u32.to_numpy(sk), u32.to_numpy(si),
+                            u32.to_numpy(sp), vc.cpu().numpy(), ovf)
+            secs[device] = time.perf_counter() - t0
+        card, cpu = outs[DEVICE], outs["cpu"]
+        for i, what in enumerate(("keys", "ids")):
+            if not np.array_equal(card[i], cpu[i]):
+                raise AssertionError(f"payload.identity {mode}: {what} "
+                                     "differ between card and CPU")
+        if not np.array_equal(card[3], cpu[3]) or card[4] != cpu[4]:
+            raise AssertionError(f"payload.identity {mode}: valid counts "
+                                 "or overflow differ")
+        if card[4] or int(card[3].sum()) != n:
+            raise AssertionError(f"payload.identity {mode}: overflow")
+        seg = card[2].shape[0] // w
+        for d in range(w):
+            lo, hi = d * seg, d * seg + int(card[3][d])
+            if not np.array_equal(card[2][lo:hi], cpu[2][lo:hi]):
+                raise AssertionError(f"payload.identity {mode}: worker {d}'s "
+                                     "payload rows differ")
+        whole = bool(np.array_equal(card[2], cpu[2]))
+        if mode == "through" and not whole:
+            raise AssertionError("payload.identity through: pad rows differ")
+        emit(phase="payload.identity", mode=mode, records=n, workers=w,
+             payload_words=PAYLOAD_WORDS, rows=int(card[2].shape[0]),
+             overflow=bool(card[4]), card_s=secs[DEVICE], cpu_s=secs["cpu"],
+             identical=True, pad_rows_identical=whole)
+
+
+def phase_payload_full(wrappers, log):
+    """Both payload modes at FULL_WAVE_RECORDS on the card (W = 8, one
+    round): PAYLOAD_TIMED_CALLS back-to-back calls of each, the last one's
+    output through valsort (keys, ids and payload); then the e2e
+    example's twin at its defaults; the launch counts of this phase, and
+    each kernel held to its plain version at the shapes it launched at."""
+    from repro_torch.core.exoshuffle import (ShuffleConfig,
+                                             distributed_sort_payload)
+    from repro_torch.data import gensort, valsort
+    from repro_torch.examples import cloudsort_e2e
+
+    n, w = FULL_WAVE_RECORDS, NUM_WORKERS
+    keys, ids = gensort.gen_keys(0, n, DEVICE)
+    payload = gensort.gen_payload(ids, PAYLOAD_WORDS)
+    in_ck = gensort.checksum(keys, ids, payload)
+    cfg = ShuffleConfig(num_workers=w, reducers_per_worker=4)
+    rounds = w.bit_length() - 1  # merge tournament rounds
+    sort = wrappers["bitonic_sort_blocks"]
+    rows = (keys.reshape(w, n // w), ids.reshape(w, n // w))
+    sort_copies = rotation(rows)
+    # the map sort on this phase's own rows, cold, as the kernel rows time
+    sort_ms = device_ms(sort, sort_copies, TIMED_CALLS,
+                        host_us(sort, rows) * 1e-6)
+    del sort_copies
+    for mode in ("through", "late"):  # where one call's device time goes
+        emit(phase="payload.split", mode=mode, records=n,
+             sort_shape=list(rows[0].shape), sort_ms=sort_ms,
+             **device_split(
+                 lambda mode=mode: distributed_sort_payload(
+                     keys, ids, payload, num_workers=w, mode=mode, cfg=cfg,
+                     device=DEVICE)))
+        torch.cuda.empty_cache()
+    zero_launches(wrappers)
+    expect = {n_: 0 for n_ in wrappers}
+    for mode in ("through", "late"):
+        before = read_launches(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        secs, out = [], None
+        for _ in range(PAYLOAD_TIMED_CALLS):
+            out = None  # the previous call's outputs go before the next
+            t0 = time.perf_counter()
+            out = distributed_sort_payload(
+                keys, ids, payload, num_workers=w, mode=mode, cfg=cfg,
+                device=DEVICE)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        after = read_launches(wrappers)
+        sk, si, sp, vc, ovf = out
+        out = None
+        if ovf:
+            raise AssertionError(f"payload.full {mode}: block overflow")
+        t0 = time.perf_counter()
+        ks, iss, ps = valsort.slice_segments(sk, si, vc, sp)
+        val = valsort.validate(ks, iss, in_ck, ps, device=DEVICE)
+        val_s = time.perf_counter() - t0
+        med = statistics.median(secs)
+        emit(phase="payload.full", mode=mode, records=n, workers=w,
+             payload_words=PAYLOAD_WORDS,
+             record_bytes=4 * (2 + PAYLOAD_WORDS),
+             block_capacity=cfg.block_capacity(n // w), calls=len(secs),
+             seconds=med, seconds_min=min(secs), seconds_max=max(secs),
+             seconds_each=secs, records_per_s=n / med,
+             max_memory_allocated=peak,
+             launches={k: after[k] - before[k] for k in after},
+             valsort_ok=val.ok, records_checked=val.total_records,
+             checksum=list(val.output_checksum), valsort_s=val_s)
+        if not val.ok or val.total_records != n:
+            raise AssertionError(f"payload.full {mode}: valsort failed")
+        calls = PAYLOAD_TIMED_CALLS
+        for k in ("bitonic_sort_blocks", "partition_offsets_blocks"):
+            expect[k] += calls
+        expect["partition_offsets_blocks"] += calls * (mode == "late")
+        expect["merge_sorted_pairs"] += calls * rounds
+        del sk, si, sp, ks, iss, ps
+        torch.cuda.empty_cache()
+    del keys, ids, payload, rows
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        out = cloudsort_e2e.main(["--device", DEVICE])
+    emit(phase="payload.e2e", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in out.items() if k != "checksum"})
+    if not out["valsort_ok"]:
+        raise AssertionError("payload.e2e: valsort failed")
+    expect["bitonic_sort_blocks"] += 1
+    expect["partition_offsets_blocks"] += 1 + w  # + each worker's R1 split
+    expect["merge_sorted_pairs"] += rounds
+    launches = read_launches(wrappers)
+    if launches != expect:
+        raise AssertionError(f"payload: launches {launches}, expected "
+                             f"{expect} (one sort and one worker split a "
+                             "call, one producer split a late fetch, "
+                             f"{rounds} merge rounds, the example's "
+                             "reducer splits)")
+    hold_shapes("payload", wrappers)
+    return launches
+
+
+def small_plan(full, **kw):
+    """A plan of IDENTITY_RECORDS in WAVES waves, as the identity phase's."""
+    return dataclasses.replace(full, **{
+        "records_per_wave": IDENTITY_RECORDS // WAVES,
+        "input_records_per_partition": IDENTITY_RECORDS // 16,
+        "output_part_records": 1 << 13, "store_chunk_bytes": 1 << 20,
+        "merge_chunk_bytes": 256 << 10, "parallel_reducers": 2,
+        "reduce_memory_budget_bytes": 2 << 20, **kw})
+
+
+def phase_fleet(full, wrappers):
+    """FULL_WAVE_RECORDS in 4 waves with the device merge, three ways under
+    the elastic driver: 4 ThreadWorkers; 4 ProcessWorkers on the card,
+    clean; the same with one child killed. Output etags identical,
+    valsort clean, and the killed run recovered (a failed worker and a
+    recovery round)."""
+    from repro_torch.data import gensort, valsort
+    from repro_torch.io.object_store import ObjectStore
+    from repro_torch.shuffle.elastic import FleetPlan
+    from repro_torch.shuffle.executor import ThreadWorker
+    from repro_torch.shuffle.procworker import ProcessWorker
+    from repro_torch.shuffle.sort import sort_shuffle_job
+
+    plan = dataclasses.replace(
+        full, records_per_wave=FULL_WAVE_RECORDS // WAVES,
+        input_records_per_partition=FULL_WAVE_RECORDS // 16)
+    root = os.path.join(WORK_DIR, "store-fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    store = ObjectStore(root)
+    store.create_bucket(BUCKET)
+    t0 = time.perf_counter()
+    in_ck, _ = gensort.write_to_store(
+        store, BUCKET, plan.input_prefix, FULL_WAVE_RECORDS,
+        plan.input_records_per_partition, plan.payload_words, device=DEVICE)
+    emit(phase="fleet.plan", records=FULL_WAVE_RECORDS, waves=WAVES,
+         workers=FLEET_WORKERS, record_bytes=plan.record_bytes,
+         reduce_merge_impl=plan.reduce_merge_impl,
+         kill_after_tasks=FLEET_KILL_AFTER,
+         gen_s=time.perf_counter() - t0)
+    zero_launches(wrappers)
+    child_launches, child_shapes, layouts = [], [], {}
+    for tag in ("thread", "process", "process_kill"):
+        t0 = time.perf_counter()
+        if tag == "thread":
+            crew = [ThreadWorker(f"w{i}", store) for i in range(FLEET_WORKERS)]
+        else:
+            crew = []
+            try:
+                for i in range(FLEET_WORKERS):
+                    kill = FLEET_KILL_AFTER if (tag == "process_kill"
+                                                and i == 0) else None
+                    crew.append(ProcessWorker(
+                        f"p{i}", store=store, bucket=BUCKET, plan=plan,
+                        num_workers=NUM_WORKERS, device=DEVICE,
+                        die_after_tasks=kill))
+            except BaseException:
+                for wk in crew:
+                    wk.close()
+                raise
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            crep = sort_shuffle_job(store, BUCKET, num_workers=NUM_WORKERS,
+                                    plan=plan, device=DEVICE).run(
+                worker_list=crew, fleet=FleetPlan())
+        finally:
+            for wk in crew:
+                if isinstance(wk, ProcessWorker):
+                    wk.close()
+        secs = time.perf_counter() - t0
+        children = [wk.launches for wk in crew
+                    if isinstance(wk, ProcessWorker)]
+        child_launches += children
+        child_shapes += [wk.shapes for wk in crew
+                         if isinstance(wk, ProcessWorker)]
+        layouts[tag] = store_layout(store, plan.output_prefix)
+        t0 = time.perf_counter()
+        val = valsort.validate_from_store(
+            store, BUCKET, plan.output_prefix, in_ck,
+            chunk_records=plan.output_part_records, device=DEVICE)
+        emit(phase="fleet.run", fleet=tag, workers=len(crew),
+             spawn_s=spawn_s, seconds=secs,
+             records_per_s=FULL_WAVE_RECORDS / secs,
+             map_s=crep.report.map_seconds,
+             reduce_s=crep.report.reduce_seconds,
+             failed_workers=crep.failed_workers,
+             recovery_rounds=crep.recovery_rounds,
+             spill_lost_map_tasks=crep.spill_lost_map_tasks,
+             reexecuted_map_tasks=crep.reexecuted_map_tasks,
+             reexecuted_reduce_tasks=crep.reexecuted_reduce_tasks,
+             per_worker_tasks=crep.per_worker_tasks,
+             child_launches=children, outputs=len(layouts[tag]),
+             valsort_ok=val.ok, valsort_s=time.perf_counter() - t0)
+        if not val.ok or val.total_records != FULL_WAVE_RECORDS:
+            raise AssertionError(f"fleet {tag}: valsort failed")
+        if tag == "process_kill":
+            if crep.failed_workers != ["p0"] or crep.recovery_rounds < 1:
+                raise AssertionError(
+                    f"fleet {tag}: expected p0 dead and a recovery round, "
+                    f"got {crep.failed_workers}, {crep.recovery_rounds}")
+        elif crep.failed_workers:
+            raise AssertionError(f"fleet {tag}: {crep.failed_workers} died")
+    launches = read_launches(wrappers, child_launches)
+    for tag, got in layouts.items():
+        if got != layouts["thread"]:
+            raise AssertionError(f"fleet: the {tag} fleet's output etags "
+                                 "differ from the thread fleet's")
+    shutil.rmtree(root, ignore_errors=True)
+    emit(phase="fleet", records=FULL_WAVE_RECORDS,
+         outputs=len(layouts["thread"]),
+         etags_identical=True, launches=launches)
+    require_launched("fleet", launches, wrappers)
+    hold_shapes("fleet", wrappers, child_shapes)
+    return launches
+
+
+def partition_imbalance(keys, bounds):
+    """max/mean of the records in each range of `bounds` (uint32)."""
+    counts = np.bincount(np.searchsorted(np.asarray(bounds, np.uint32), keys,
+                                         side="right"),
+                         minlength=len(bounds) + 1)
+    return float(counts.max() / counts.mean())
+
+
+def phase_recursive(full, wrappers):
+    """recursive_sort of IDENTITY_RECORDS zipf-keyed records (sampled
+    boundaries, a reduce budget below the hot partitions) on the card
+    and on the CPU: output etags identical, valsort clean."""
+    from repro_torch.core.keyspace import KeySpace
+    from repro_torch.data import gensort, valsort
+    from repro_torch.io.object_store import ObjectStore
+    from repro_torch.kernels import u32
+    from repro_torch.shuffle.recursive import recursive_sort
+
+    plan = small_plan(full, capacity_factor=2.0, sample_fraction=1 / 16,
+                      max_rounds=3, reduce_memory_budget_bytes=3_400_000)
+    layouts = {}
+    for device in (DEVICE, "cpu"):
+        root = os.path.join(WORK_DIR, f"store-recursive-{device}")
+        shutil.rmtree(root, ignore_errors=True)
+        store = ObjectStore(root)
+        store.create_bucket(BUCKET)
+        in_ck, _ = gensort.write_to_store(
+            store, BUCKET, plan.input_prefix, IDENTITY_RECORDS,
+            plan.input_records_per_partition, plan.payload_words,
+            skew="zipf", skew_seed=SEED, device=device)
+        if device == DEVICE:
+            zero_launches(wrappers)
+        t0 = time.perf_counter()
+        rep = recursive_sort(store, BUCKET, num_workers=NUM_WORKERS,
+                             plan=plan, device=device)
+        secs = time.perf_counter() - t0
+        if device == DEVICE:
+            launches = read_launches(wrappers)
+        layouts[device] = store_layout(store, plan.output_prefix)
+        val = valsort.validate_from_store(store, BUCKET, plan.output_prefix,
+                                          in_ck, device=device)
+        shutil.rmtree(root, ignore_errors=True)
+        if not val.ok or val.total_records != IDENTITY_RECORDS:
+            raise AssertionError(f"recursive {device}: valsort failed")
+        emit(phase="recursive.run", device=device, seconds=secs,
+             rounds=len(rep.rounds), depth=rep.num_rounds,
+             recursed=len(rep.recursed), restaged=len(rep.restaged),
+             outputs=rep.output_objects, valsort_ok=val.ok)
+    if layouts[DEVICE] != layouts["cpu"]:
+        raise AssertionError("recursive: card and CPU output etags differ")
+    parts = NUM_WORKERS * plan.reducers_per_worker
+    keys = gensort.skewed_keys(
+        np.arange(IDENTITY_RECORDS, dtype=np.uint32), "zipf", SEED)
+    equal = u32.to_numpy(KeySpace(num_reducers=parts,
+                                  num_workers=NUM_WORKERS)
+                         .reducer_boundaries("cpu"))
+    emit(phase="recursive", records=IDENTITY_RECORDS, partitions=parts,
+         imbalance_equal=partition_imbalance(keys, equal),
+         imbalance_sampled=partition_imbalance(keys, rep.sample.boundaries),
+         etags_identical=True, launches=launches)
+    require_launched("recursive", launches, ("bitonic_sort_blocks",
+                                             "partition_offsets_blocks",
+                                             "merge_sorted_pairs"))
+    hold_shapes("recursive", wrappers)
+    return launches
+
+
+def phase_cloud(full, wrappers):
+    """An InvocationDriver of 4 FunctionWorkers over FakeS3Backend on the
+    card at IDENTITY_RECORDS, one dying at a pop and one severed
+    mid-invocation: output etags identical to a thread fleet's."""
+    from repro_torch.cloud import FakeS3Backend, InvocationDriver
+    from repro_torch.data import gensort, valsort
+    from repro_torch.io.middleware import MetricsMiddleware
+    from repro_torch.shuffle.sort import sort_shuffle_job
+
+    plan = small_plan(full)
+    store = MetricsMiddleware(FakeS3Backend(chunk_size=1 << 20))
+    store.create_bucket(BUCKET)
+    in_ck, _ = gensort.write_to_store(
+        store, BUCKET, plan.input_prefix, IDENTITY_RECORDS,
+        plan.input_records_per_partition, plan.payload_words, device=DEVICE)
+    sort_shuffle_job(store, BUCKET, num_workers=NUM_WORKERS, plan=plan,
+                     device=DEVICE).run(workers=FLEET_WORKERS)
+    want = store_layout(store, plan.output_prefix)
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    drv = InvocationDriver(store, BUCKET, plan=plan, workers=FLEET_WORKERS,
+                           num_workers=NUM_WORKERS, device=DEVICE,
+                           die_after_invocations={0: 3},
+                           fail_after_requests={1: 40})
+    crep = drv.run()
+    secs = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    inv = drv.invocations()
+    val = valsort.validate_from_store(store, BUCKET, plan.output_prefix,
+                                      in_ck, device=DEVICE)
+    emit(phase="cloud", records=IDENTITY_RECORDS, functions=FLEET_WORKERS,
+         seconds=secs, failed_workers=crep.failed_workers,
+         invocations=len(inv), committed=sum(r.committed for r in inv),
+         reexecuted_map_tasks=crep.reexecuted_map_tasks,
+         reexecuted_reduce_tasks=crep.reexecuted_reduce_tasks,
+         valsort_ok=val.ok, launches=launches)
+    if store_layout(store, plan.output_prefix) != want:
+        raise AssertionError("cloud: output etags differ from the thread "
+                             "fleet's")
+    if not val.ok or sorted(crep.failed_workers) != ["fn0", "fn1"]:
+        raise AssertionError(f"cloud: valsort {val.ok}, failed workers "
+                             f"{crep.failed_workers}")
+    require_launched("cloud", launches, wrappers)
+    hold_shapes("cloud", wrappers)
+    return launches
 
 
 def run_example(argv, plan, log):
@@ -587,7 +1134,7 @@ def main():
 
 
 def run(log):
-    """The six phases; verbose output of the example runs goes to `log`."""
+    """The ten phases; verbose output of the example runs goes to `log`."""
     t_start = time.perf_counter()
 
     # ---- 1. environment ----
@@ -628,15 +1175,7 @@ def run(log):
     rows = phase_kernels(full)
 
     # ---- 4. identity: card vs CPU at 2^20 records, both reduce merges ----
-    small = dataclasses.replace(full,
-                                records_per_wave=IDENTITY_RECORDS // WAVES,
-                                input_records_per_partition=(
-                                    IDENTITY_RECORDS // 16),
-                                output_part_records=1 << 13,
-                                store_chunk_bytes=1 << 20,
-                                merge_chunk_bytes=256 << 10,
-                                parallel_reducers=2,
-                                reduce_memory_budget_bytes=2 << 20)
+    small = small_plan(full)
     layouts = {}
     for device in (DEVICE, "cpu"):
         for rmi in ("numpy", "device"):
@@ -675,16 +1214,13 @@ def run(log):
          output_part_records=full.output_part_records)
     from repro_torch.kernels import kway_merge
 
-    for fn in wrappers.values():
-        fn.launches = 0
     kway_merge.merge_fragments_device.windows = 0
     kway_merge.merge_fragments_device.records = 0
-    torch.cuda.synchronize()
+    zero_launches(wrappers)
     out = run_example(
         ["--records", str(records), "--waves", str(WAVES), "--no-faults",
          "--device", DEVICE, "--store", store], full, log)
-    torch.cuda.synchronize()
-    launches = {n: fn.launches for n, fn in wrappers.items()}
+    launches = read_launches(wrappers)
     windows = kway_merge.merge_fragments_device.windows
     window_records = kway_merge.merge_fragments_device.records
     shutil.rmtree(store, ignore_errors=True)
@@ -693,18 +1229,29 @@ def run(log):
          window_mean_records=window_records / max(windows, 1), device=name)
     if not out["valsort_ok"]:
         raise AssertionError("full run: valsort failed")
-    for n, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"full run: kernel {n} was never launched")
+    require_launched("full run", launches, wrappers)
     if launches["merge_sorted_pairs_indexed"] != windows:
         raise AssertionError(
             f"full run: {launches['merge_sorted_pairs_indexed']} indexed "
             f"merge launches for {windows} windows of >= 2 fragments")
+    hold_shapes("full", wrappers)
     phase_window_split(full, window_records / windows)
+    by_phase = {"full": launches}
 
-    # ---- 6. the kernels line, then the ok line ----
+    # ---- 6. the payload modes ----
+    phase_payload_identity()
+    by_phase["payload"] = phase_payload_full(wrappers, log)
+
+    # ---- 7.-9. the fleets: processes, the skew pass, functions ----
+    by_phase["fleet"] = phase_fleet(full, wrappers)
+    by_phase["recursive"] = phase_recursive(full, wrappers)
+    by_phase["cloud"] = phase_cloud(full, wrappers)
+
+    # ---- 10. the kernels line, then the ok line ----
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["launches_by_phase"] = {p: c[row["name"]]
+                                    for p, c in by_phase.items()}
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -15,7 +15,8 @@ every tensor. One *shuffle round* is, for all W workers at once:
 
 Blocks are padded to capacity = next_pow2(n/W * capacity_factor), and
 `overflow` reports whether any block exceeded it (the reference's pmax
-becomes any()).
+becomes any()). `distributed_sort_payload` sorts whole records: the
+payload rows follow their headers by one of core/payload.py's modes.
 """
 from __future__ import annotations
 
@@ -60,13 +61,14 @@ class ShuffleConfig:
         return p
 
 
-def _shuffle_round(keys, vals, *, cfg: ShuffleConfig, capacity: int):
-    """One map->partition->all_to_all->merge round for all W workers.
+def _exchange(keys, vals, *, cfg: ShuffleConfig, capacity: int):
+    """Map, partition and all_to_all of one round for all W workers.
 
     keys/vals: (W, n) u32, row w = worker w's local records. Returns
-    (run_k, run_v, counts, overflow): run_* (W, W*capacity) lex-sorted
-    with pads at the tail; counts (W_dst, W_src) int32 records received
-    from each source worker; overflow a bool tensor.
+    (bv, rk, rv, rcounts, overflow): bv (W_src, W_dst, C) the sent
+    blocks' vals; rk/rv (W_dst, W_src, C) the received blocks; rcounts
+    (W_dst, W_src) int32 records received from each source worker;
+    overflow a bool tensor.
     """
     ks = cfg.keyspace
     # --- map: sort the local partitions (paper §2.3 step 1) ---
@@ -79,10 +81,32 @@ def _shuffle_round(keys, vals, *, cfg: ShuffleConfig, capacity: int):
     # --- shuffle: the tiled all_to_all, (W_src, W_dst, C) -> (W_dst, W_src, C)
     rk = bk.transpose(0, 1).contiguous()
     rv = bv.transpose(0, 1).contiguous()
-    rcounts = counts.transpose(0, 1)
+    return bv, rk, rv, counts.transpose(0, 1), overflow
+
+
+def _shuffle_round(keys, vals, *, cfg: ShuffleConfig, capacity: int):
+    """One map->partition->all_to_all->merge round for all W workers.
+
+    keys/vals: (W, n) u32. Returns (run_k, run_v, counts, overflow):
+    run_* (W, W*capacity) lex-sorted with pads at the tail; counts
+    (W_dst, W_src) int32; overflow a bool tensor.
+    """
+    _, rk, rv, rcounts, overflow = _exchange(keys, vals, cfg=cfg,
+                                             capacity=capacity)
     # --- merge: the merge task (paper §2.3), a merge tournament ---
     mk, mv = sortlib.merge_runs(rk, rv, impl=cfg.impl)
     return mk, mv, rcounts, overflow
+
+
+def config_from_reference(fields: dict) -> ShuffleConfig:
+    """A ShuffleConfig from `dataclasses.asdict` of the reference
+    package's: impl "pallas" maps to "kernel", "ref" stays "ref"."""
+    fields = dict(fields)
+    impl = fields.get("impl", "kernel")
+    fields["impl"] = {"pallas": "kernel", "ref": "ref"}.get(impl, impl)
+    if fields.get("boundaries") is not None:
+        fields["boundaries"] = tuple(int(b) for b in fields["boundaries"])
+    return ShuffleConfig(**fields)
 
 
 def _config(num_workers, cfg, impl, capacity_factor, **kw) -> ShuffleConfig:
@@ -117,6 +141,76 @@ def distributed_sort(keys, vals, *, num_workers: int,
         keys.reshape(w, n), vals.reshape(w, n), cfg=cfg, capacity=capacity)
     valid = rcounts.sum(dim=-1).to(torch.int32)
     return mk.reshape(-1), mv.reshape(-1), valid, bool(overflow)
+
+
+PAYLOAD_MODES = ("through", "late")
+
+
+def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
+                        mode: str):
+    """Whole-record sort for all W workers: headers through the merge,
+    payload rows by `mode` ("through" = paper-faithful, "late" =
+    deferred fetch). keys/ids (W, n) u32, payload (W, n, pw) u32.
+    Returns (mk, mv, pout, valid, overflow): mk/mv (W, W*C), pout
+    (W, W*C, pw), valid (W,) int32, overflow a bool."""
+    from repro_torch.core import payload as pay
+
+    w, n = keys.shape
+    capacity = cfg.block_capacity(n)
+    bv, rk, rv, rcounts, overflow = _exchange(keys, ids, cfg=cfg,
+                                              capacity=capacity)
+    if mode == "through":
+        # Payload rows ride the same exchange, block-aligned with their
+        # headers; local row = min(id - my*n, n-1) in u32 arithmetic, so
+        # pad ids take the sender's last row.
+        my = torch.arange(w, dtype=torch.int64, device=keys.device)
+        diff = (u32.widen(bv) - my[:, None, None] * n) & u32.MASK
+        local_row = torch.clamp(diff, max=n - 1).reshape(w, -1)
+        bp = pay.take_rows(payload, local_row)
+        rp = pay.exchange_payload_blocks(
+            bp.reshape(w, w, capacity, bp.shape[-1]))
+    mk, mv = sortlib.merge_runs(rk, rv, impl=cfg.impl)
+    if mode == "through":
+        pout = pay.align_payload_to_merge(
+            rv.reshape(w, -1), rp.reshape(w, -1, rp.shape[-1]), mv)
+        fetch_overflow = False
+    else:
+        pout, fetch_overflow = pay.late_fetch_payload(
+            mv, payload, num_workers=w, records_per_worker=n,
+            capacity=cfg.block_capacity(mv.shape[-1]), impl=cfg.impl)
+    valid = rcounts.sum(dim=-1).to(torch.int32)
+    return mk, mv, pout, valid, bool(overflow | fetch_overflow)
+
+
+def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
+                             mode: str = "through",
+                             cfg: ShuffleConfig | None = None,
+                             impl: str = "kernel",
+                             capacity_factor: float = 1.5, device="cuda"):
+    """Sort whole records: (key, global id, payload row).
+
+    keys/ids: (N,) uint32 (numpy or u32 tensors); ids globally unique
+    with id // (N/W) == producing worker (the data/gensort.py layout).
+    payload: (N, pw) uint32. Returns (sorted_keys, sorted_ids,
+    payload_rows, valid_counts, overflow) on `device`, flattened as
+    distributed_sort's: payload_rows[i] (W*W*C, pw) is the payload of
+    the record at output position i. In the "late" mode the rows at pad
+    positions are unspecified, as in the reference.
+    """
+    if mode not in PAYLOAD_MODES:
+        raise ValueError(f"unknown payload mode {mode!r}: must be one of "
+                         f"{PAYLOAD_MODES}")
+    dev = u32.resolve_device(device)
+    w = num_workers
+    cfg = _config(w, cfg, impl, capacity_factor)
+    keys, ids = u32.as_tensor(keys, dev), u32.as_tensor(ids, dev)
+    payload = u32.as_tensor(payload, dev)
+    n = keys.shape[-1] // w
+    pw = payload.shape[-1]
+    mk, mv, pout, valid, ovf = _sort_shard_payload(
+        keys.reshape(w, n), ids.reshape(w, n), payload.reshape(w, n, pw),
+        cfg=cfg, mode=mode)
+    return mk.reshape(-1), mv.reshape(-1), pout.reshape(-1, pw), valid, ovf
 
 
 def reduce_partitions(sorted_keys, cfg: ShuffleConfig, worker_id: int):

@@ -96,8 +96,8 @@ class ExternalSortPlan:
     part_upload_fanout: int = 2  # out-of-order part uploads per partition
     map_pipeline: bool = True  # overlap decode/device-sort/encode across waves
     reduce_merge_impl: str = "numpy"  # emit-window merge ("numpy" | "device")
-    # Skew-adaptive knobs, consumed by the recursive shuffle (a later
-    # slice of the port); kept so plans round-trip between packages.
+    # Skew-adaptive knobs, consumed by the recursive shuffle
+    # (shuffle/recursive.py).
     sample_fraction: float = 0.0  # fraction of input records to sample
     max_rounds: int = 1  # recursive shuffle depth (1 = single pass)
 

@@ -154,9 +154,13 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
 
 
-def count_launch(wrapper, attr: str = "launches", n: int = 1) -> None:
-    """Add n to the count `wrapper.<attr>` (by default its launches).
-    Reduce sinks launch from several threads, and `+=` on an attribute is
-    not atomic."""
+def count_launch(wrapper, attr: str = "launches", n: int = 1,
+                 shape: tuple | None = None) -> None:
+    """Add n to the count `wrapper.<attr>` (by default its launches) and
+    `shape`, where given, to the set `wrapper.shapes` of the shapes the
+    kernel was launched at. Reduce sinks launch from several threads, and
+    `+=` on an attribute is not atomic."""
     with _count_lock:
         setattr(wrapper, attr, getattr(wrapper, attr) + n)
+        if shape is not None:
+            wrapper.shapes.add(shape)

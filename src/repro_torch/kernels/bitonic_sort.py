@@ -121,8 +121,9 @@ def bitonic_sort_blocks(keys: torch.Tensor, vals: torch.Tensor):
     triples = (ctypes.c_longlong * (3 * len(plan)))(*sum(plan, ()))
     _build.launch("bitonic_sort", keys, vals, ok, ov, scratch, nb, b, tile,
                   ctypes.addressof(triples), len(plan))
-    _build.count_launch(bitonic_sort_blocks)
+    _build.count_launch(bitonic_sort_blocks, shape=(nb, b))
     return ok, ov
 
 
 bitonic_sort_blocks.launches = 0
+bitonic_sort_blocks.shapes = set()  # (num_blocks, B) launched at

@@ -82,7 +82,7 @@ def _launch(a, b, out, n: int, k: int, run: int) -> None:
     three (n, m) `out` tensors gets the row's first m merged records."""
     u32.require_u32(*a, *b, *out)
     _build.launch("kway_merge", *a, *b, *out, n, k, run, out[0].shape[-1])
-    _build.count_launch(merge_sorted_pairs_indexed)
+    _build.count_launch(merge_sorted_pairs_indexed, shape=(n, k, run))
 
 
 def merge_sorted_pairs_indexed(a_keys, a_vals, a_idx, b_keys, b_vals, b_idx):
@@ -106,6 +106,7 @@ def merge_sorted_pairs_indexed(a_keys, a_vals, a_idx, b_keys, b_vals, b_idx):
 
 
 merge_sorted_pairs_indexed.launches = 0
+merge_sorted_pairs_indexed.shapes = set()  # (n rows, K runs, L) launched at
 
 
 def kway_merge_indexed_plain(keys, vals, idx):

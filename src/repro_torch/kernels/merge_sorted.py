@@ -64,8 +64,9 @@ def merge_sorted_pairs(a_keys: torch.Tensor, a_vals: torch.Tensor,
     ov = torch.empty_like(ok)
     _build.launch("merge_sorted", a_keys, a_vals, b_keys, b_vals, ok, ov,
                   n, run, min(2 * run, TILE))
-    _build.count_launch(merge_sorted_pairs)
+    _build.count_launch(merge_sorted_pairs, shape=(n, run))
     return ok, ov
 
 
 merge_sorted_pairs.launches = 0
+merge_sorted_pairs.shapes = set()  # (n, L) launched at

@@ -101,8 +101,9 @@ def partition_offsets_blocks(sorted_keys: torch.Tensor,
         partials, tickets = _scratch_for(dev, nb * bpr * r, nb)
         _build.launch("range_partition", sorted_keys, boundaries, out,
                       partials, tickets, nb, b, r, bpr)
-        _build.count_launch(partition_offsets_blocks)
+        _build.count_launch(partition_offsets_blocks, shape=(nb, b, r))
     return out
 
 
 partition_offsets_blocks.launches = 0
+partition_offsets_blocks.shapes = set()  # (num_blocks, B, R) launched at

@@ -369,3 +369,32 @@ def test_wrappers_launch_or_raise_off_cpu(call, capability, error,
     monkeypatch.setattr(_build, "_hopper", set())
     with pytest.raises(RuntimeError, match=error):
         call()
+
+
+@pytest.mark.parametrize("call,wrapper,shape", [
+    (lambda: bitonic_sort_blocks(_meta((2, 8)), _meta((2, 8))),
+     bitonic_sort_blocks, (2, 8)),
+    (lambda: partition_offsets_blocks(_meta((2, 8)), _meta((3,))),
+     partition_offsets_blocks, (2, 8, 3)),
+    (lambda: merge_sorted_pairs(*[_meta((2, 8))] * 4),
+     merge_sorted_pairs, (2, 8)),
+    (lambda: tkm.merge_sorted_pairs_indexed(*[_meta((2, 8))] * 6),
+     tkm.merge_sorted_pairs_indexed, (2, 2, 8)),
+], ids=["sort", "partition", "merge", "merge_indexed"])
+def test_wrappers_count_each_launch_and_its_shape(call, wrapper, shape,
+                                                  monkeypatch):
+    """Off the CPU each wrapper adds one launch and its launch shape
+    (what chip_smoke holds the kernel to its plain version at) per
+    kernel launch; the launch itself is stubbed here."""
+    from repro_torch.kernels import _build, range_partition
+
+    monkeypatch.setattr(_build, "launch", lambda *a: None)
+    monkeypatch.setattr(_build, "prepare", lambda *a: None)
+    monkeypatch.setattr(range_partition, "_blocks_per_row", lambda *a: 1)
+    monkeypatch.setattr(range_partition, "_scratch_for",
+                        lambda *a: (None, None))
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "shapes", set())
+    call()
+    call()
+    assert wrapper.launches == 2 and wrapper.shapes == {shape}

@@ -35,7 +35,7 @@ def expand(plan):
     return out
 
 
-@pytest.mark.parametrize("lb", range(21))
+@pytest.mark.parametrize("lb", range(22))
 @pytest.mark.parametrize("tile", TILES)
 def test_sort_plan_covers_network_once_in_order(tile, lb):
     b = 1 << lb
@@ -62,6 +62,16 @@ def test_sort_plan_main_path_pass_count():
     plan = sort_plan(1 << 20)
     assert len(plan) == 16
     assert sum(1 for w, d, n in plan[1:] if d >= TILE) == 8
+
+
+def test_sort_plan_payload_path_pass_count():
+    """(8, 2^21), the payload path's map sort (one round of 2^24 records
+    over 8 workers): 1 tile sort, then 8 windows above the tile, whose
+    1..8 global substages take 1, 1, 1, 1, 1, 1, 2 and 2 fused passes,
+    each window ending in a stage merge — 19 passes."""
+    plan = sort_plan(1 << 21)
+    assert len(plan) == 19
+    assert sum(1 for w, d, n in plan[1:] if d >= TILE) == 10
 
 
 def _global_pass(packed, w, d, n):
