@@ -46,14 +46,31 @@ Run from the repo root on a machine with one H100. It
   9. `cloud`: a FunctionWorker fleet over FakeS3Backend on the card at
      2^20 records with invocation kills: etags identical to a thread
      fleet's;
- 10. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
+ 10. `quickstart`: the quickstart twin on the card (32k records, 8
+     workers, 4 rounds), valsort clean; `groupby`: the group-by example
+     (host numpy on a faulty tiered store), its validation clean;
+ 11. `epoch.identity`: device_epoch_shuffle of 2^20 ids over 8 workers on
+     the card and the CPU, bit-identical; `epoch.full`: 2^24 ids, epochs
+     3 and 4 on the card, true permutations that differ;
+ 12. `moe.identity`: the MoE sort dispatch at qwen2-moe-a2.7b's expert
+     widths (E = 64, K = 4, d = 2048, d_ff = 1408, T = 512) in float32
+     with TF32 off, at ep_size 1 and 4 on the card and the CPU, against
+     the onehot baseline on the card;
+ 13. `serve.identity`: qwen2-moe-a2.7b at full width, 2 layers, float32,
+     card against CPU (prefill logits, greedy tokens); `serve.full`: the
+     same model at full width and depth in bfloat16 on the card, 4
+     requests of 128-token prompts, 32 greedy tokens each, through
+     repro_torch.serve.engine.generate: parameter count, peak memory,
+     prefill ms, decode ms a step, tokens/s;
+ 14. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
      line (each kernel's launches on the full run, and per phase) and,
      last, the `ok` line.
 
-Each of the phases 5-9 zeroes every kernel's launch count just before
+Each of the phases 5-13 zeroes every kernel's launch count just before
 its runs and reads it just after (a process fleet's children report
 theirs at each phase end), and fails if a kernel of its path never
-launched. Then (`<phase>.hold`) it holds each kernel bit-identical to
+launched, or, where the path runs none of the four kernels (the
+group-by, the MoE dispatch and serving), if one did. Then (`<phase>.hold`) it holds each kernel bit-identical to
 its plain version on the card at every shape the phase launched it at
 (the wrappers record their launch shapes; children report theirs too),
 on fresh random inputs.
@@ -65,6 +82,7 @@ directory without the port beside this script.
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -93,6 +111,17 @@ PAYLOAD_WORDS = 23  # 100-byte records
 PAYLOAD_TIMED_CALLS = 5  # back-to-back payload calls of each mode
 FLEET_WORKERS = 4
 FLEET_KILL_AFTER = 3  # the killed child dies at its 4th task pop
+EPOCH_FULL_IDS = 1 << 24  # sample ids of the full epoch shuffle
+EPOCHS = (3, 4)
+MOE_SHAPE = dict(experts=64, top_k=4, d=2048, d_ff=1408, tokens=512)
+MOE_CAPACITY_FACTOR = 4.0  # room for every routed pair: the paths compare
+MOE_TOL = 1e-4  # max |diff| of the dispatches (tests/test_exoshuffle.py's)
+SERVE_ARCH = "qwen2-moe-a2.7b"
+SERVE_IDENTITY_LAYERS = 2
+SERVE_REQUESTS = 4
+SERVE_IDENTITY_PROMPT, SERVE_IDENTITY_NEW = 32, 8
+SERVE_FULL_PROMPT, SERVE_FULL_NEW = 128, 32
+SERVE_TOL = 1e-4  # max |diff| of float32 prefill logits, card vs CPU
 DEVICE = "cuda"
 BUCKET = "cloudsort"
 
@@ -231,6 +260,29 @@ def device_split(fn, *args):
             "our_kernels_us": sum(us for n, us in per.items()
                                   if n.startswith(OUR_KERNELS)),
             "top_us": sorted(per.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def host_split(fn, *args):
+    """The host side of one fn(*args) call from a torch.profiler trace of
+    CPU and CUDA activity: its ops by self CPU µs (the ten largest, with
+    their counts; the profiler's own cost inflates them, so read them as
+    shares) and the count of each CUDA runtime call (kernel launches,
+    copies, synchronisations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    rows = sorted(([e.key, e.count, e.self_cpu_time_total] for e in avg),
+                  key=lambda r: -r[2])
+    return {"host_self_us": sum(r[2] for r in rows),
+            "top_self_cpu_us": rows[:10],
+            "cuda_runtime_calls": {e.key: e.count for e in avg
+                                   if e.key.startswith("cuda")}}
 
 
 def ptxas_summary(logs):
@@ -1107,6 +1159,358 @@ def phase_cloud(full, wrappers):
     return launches
 
 
+def phase_quickstart(wrappers, log):
+    """The quickstart twin on the card (8 workers, 4 rounds): valsort
+    clean; the sort, partition and merge kernels launched and held."""
+    from repro_torch.examples import quickstart
+
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        out = quickstart.main(["--device", DEVICE])
+    secs = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    emit(phase="quickstart", records=out["records"], workers=out["workers"],
+         rounds=out["rounds"], seconds=secs, valsort_ok=out["valsort_ok"],
+         launches=launches)
+    if not out["valsort_ok"]:
+        raise AssertionError("quickstart: valsort failed")
+    require_launched("quickstart", launches, ("bitonic_sort_blocks",
+                                              "partition_offsets_blocks",
+                                              "merge_sorted_pairs"))
+    hold_shapes("quickstart", wrappers)
+    return launches
+
+
+def phase_groupby(wrappers, log):
+    """The group-by example (a copy of the reference's: host numpy on a
+    tiered store with injected S3 faults) at its defaults: its own
+    validation passes, on the torch-only install; no kernel runs."""
+    from repro_torch.examples import groupby_shuffle
+
+    root = os.path.join(WORK_DIR, "store-groupby")
+    shutil.rmtree(root, ignore_errors=True)
+    zero_launches(wrappers)
+    argv, sys.argv = sys.argv, ["groupby_shuffle", "--store", root]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            groupby_shuffle.main()
+    finally:
+        sys.argv = argv
+    secs = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    log.write(buf.getvalue())
+    shutil.rmtree(root, ignore_errors=True)
+    val = [ln for ln in buf.getvalue().splitlines()
+           if ln.startswith("[validate]")]
+    ok = bool(val) and all(f"{k}=True" in val[0] for k in
+                           ("counts", "sums", "sorted", "routing"))
+    emit(phase="groupby", seconds=secs, validation=val[0] if val else None,
+         ok=ok, launches=launches)
+    if not ok:
+        raise AssertionError(f"groupby: validation failed: {val}")
+    require_none_launched("groupby", launches)
+    return launches
+
+
+def require_none_launched(phase, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: expected no kernel launch, got "
+                             f"{launches}")
+
+
+def phase_epoch_identity():
+    """device_epoch_shuffle of IDENTITY_RECORDS ids over W workers on the
+    card and on the CPU (plain versions): bit-identical permutations."""
+    from repro_torch.data.pipeline import device_epoch_shuffle
+
+    ids = np.arange(IDENTITY_RECORDS, dtype=np.uint32)
+    perms, secs = {}, {}
+    for device in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        perms[device] = device_epoch_shuffle(
+            ids, EPOCHS[0], num_workers=NUM_WORKERS, device=device)
+        secs[device] = time.perf_counter() - t0
+    identical = bool(np.array_equal(perms[DEVICE], perms["cpu"]))
+    emit(phase="epoch.identity", ids=IDENTITY_RECORDS, workers=NUM_WORKERS,
+         epoch=EPOCHS[0], card_s=secs[DEVICE], cpu_s=secs["cpu"],
+         identical=identical)
+    if not identical:
+        raise AssertionError("epoch.identity: card and CPU permutations "
+                             "differ")
+
+
+def phase_epoch_full(wrappers):
+    """EPOCH_FULL_IDS sample ids shuffled on the card for two epochs:
+    each a true permutation, the two different; one distributed sort a
+    call (one sort, one worker split, log2(W) merge rounds)."""
+    from repro_torch.data.pipeline import device_epoch_shuffle
+    from repro_torch.kernels import u32
+
+    n = EPOCH_FULL_IDS
+    ids = u32.narrow(torch.arange(n, dtype=torch.int64, device=DEVICE))
+    zero_launches(wrappers)
+    perms, secs = {}, {}
+    for epoch in EPOCHS:
+        t0 = time.perf_counter()
+        perms[epoch] = device_epoch_shuffle(ids, epoch,
+                                            num_workers=NUM_WORKERS,
+                                            device=DEVICE)
+        secs[epoch] = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    first, second = (perms[e] for e in EPOCHS)
+    permutation = bool(len(first) == n and np.array_equal(
+        np.sort(first), np.arange(n, dtype=np.uint32)))
+    differ = bool(not np.array_equal(first, second))
+    rounds = NUM_WORKERS.bit_length() - 1
+    expect = {"bitonic_sort_blocks": len(EPOCHS),
+              "partition_offsets_blocks": len(EPOCHS),
+              "merge_sorted_pairs": len(EPOCHS) * rounds,
+              "merge_sorted_pairs_indexed": 0}
+    emit(phase="epoch.full", ids=n, workers=NUM_WORKERS, epochs=list(EPOCHS),
+         seconds={str(e): secs[e] for e in EPOCHS},
+         samples_per_s={str(e): n / secs[e] for e in EPOCHS},
+         permutation=permutation, epochs_differ=differ, launches=launches)
+    if not (permutation and differ):
+        raise AssertionError(f"epoch.full: permutation {permutation}, "
+                             f"epochs differ {differ}")
+    if launches != expect:
+        raise AssertionError(f"epoch.full: launches {launches}, expected "
+                             f"{expect}")
+    hold_shapes("epoch", wrappers)
+    return launches
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 matmuls and convolutions in full precision (TF32 off), so
+    the card's float32 results compare with the CPU's."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def phase_moe_identity(wrappers):
+    """The MoE dispatch at qwen2-moe's expert widths in float32: the sort
+    pipeline at ep_size 1 and 4 (the EP shards as a batch axis) on the
+    card and on the CPU, and the onehot baseline on the card with room
+    for every pair, all within MOE_TOL of the onehot result. No kernel
+    runs: the dispatch sorts with torch.sort, as the reference with XLA's."""
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.models import layers
+    from repro_torch.models.moe import expert_fn
+
+    e, k, d = MOE_SHAPE["experts"], MOE_SHAPE["top_k"], MOE_SHAPE["d"]
+    f, t = MOE_SHAPE["d_ff"], MOE_SHAPE["tokens"]
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32))
+    logits = torch.from_numpy(rng.normal(size=(t, e)).astype(np.float32))
+    gen = torch.Generator().manual_seed(SEED)
+    experts = {"w_gate": layers.uniform_init((e, d, f), gen, d**-0.5),
+               "w_up": layers.uniform_init((e, d, f), gen, d**-0.5),
+               "w_down": layers.uniform_init((e, f, d), gen, f**-0.5)}
+    cfg = md.MoeDispatchConfig(e, k, MOE_CAPACITY_FACTOR)
+    zero_launches(wrappers)
+    outs, ms = {}, {}
+    with full_float32():
+        for device in (DEVICE, "cpu"):
+            dev = torch.device(device)
+            xd = x.to(dev)
+            prm = {n: w.to(dev) for n, w in experts.items()}
+            w, ids = md.route_topk(logits.to(dev), k)
+            if device == "cpu":
+                # the dispatch compares only if nothing was dropped
+                counts = torch.bincount(ids.reshape(-1), minlength=e)
+                ecap = md._round_up(t * k / e * MOE_CAPACITY_FACTOR, 8)
+                if int(counts.max()) > ecap:
+                    raise AssertionError(f"moe.identity: an expert holds "
+                                         f"{int(counts.max())} > {ecap} pairs")
+            for ep in (1, 4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[(device, f"sort_ep{ep}")] = md.sort_dispatch(
+                    xd, w, ids, prm, cfg=cfg, expert_fn=expert_fn,
+                    ep_size=ep).cpu()
+                ms[f"{device}.sort_ep{ep}"] = (time.perf_counter() - t0) * 1e3
+            outs[(device, "ids")] = ids.cpu()
+            if device == DEVICE:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[(device, "onehot")] = md.onehot_dispatch_combine(
+                    xd, w, ids, num_experts=e, capacity=t * k,
+                    expert_fn=lambda xin: expert_fn(prm, xin)).cpu()
+                ms[f"{device}.onehot"] = (time.perf_counter() - t0) * 1e3
+            del xd, prm, w, ids
+            torch.cuda.empty_cache()
+    launches = read_launches(wrappers)
+    if not torch.equal(outs[(DEVICE, "ids")], outs[("cpu", "ids")]):
+        raise AssertionError("moe.identity: card and CPU routed differently")
+    want = outs[(DEVICE, "onehot")]
+    errs = {f"{dev}.{name}": float((got - want).abs().max())
+            for (dev, name), got in outs.items()
+            if name.startswith("sort")}
+    emit(phase="moe.identity", **MOE_SHAPE,
+         capacity_factor=MOE_CAPACITY_FACTOR, tol=MOE_TOL,
+         max_abs_diff_vs_onehot=errs, out_abs_max=float(want.abs().max()),
+         ms=ms, launches=launches)
+    if max(errs.values()) > MOE_TOL:
+        raise AssertionError(f"moe.identity: {errs} exceed {MOE_TOL}")
+    require_none_launched("moe", launches)
+    return launches
+
+
+def serve_config(**over):
+    from repro_torch.configs import get
+
+    return dataclasses.replace(get(SERVE_ARCH), **over)
+
+
+def prompts(cfg, length, seed=SEED):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SERVE_REQUESTS, length))
+
+
+def phase_serve_identity(wrappers):
+    """qwen2-moe-a2.7b at full width and SERVE_IDENTITY_LAYERS layers in
+    float32 (TF32 off), the same weights on the card and the CPU: prefill
+    logits within SERVE_TOL, and the same greedy tokens."""
+    from repro_torch.models import api as mapi
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import ServeConfig, generate
+
+    cfg = serve_config(n_layers=SERVE_IDENTITY_LAYERS, dtype="float32")
+    model = mapi.build(cfg)
+    tokens = prompts(cfg, SERVE_IDENTITY_PROMPT)
+    zero_launches(wrappers)
+    out = {}
+    with full_float32():
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+        for device in (DEVICE, "cpu"):
+            if device == "cpu":
+                state = {n: p.cpu() for n, p in params.state_dict().items()}
+                del params
+                torch.cuda.empty_cache()
+                params = Transformer(cfg, None)
+                params.load_state_dict(state, strict=True, assign=True)
+                del state
+            batch = {"tokens": torch.from_numpy(tokens).to(device)}
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(params, batch)
+            gen, _ = generate(model, params, batch,
+                              ServeConfig(max_new_tokens=SERVE_IDENTITY_NEW))
+            out[device] = (logits.cpu(), gen.cpu(),
+                           time.perf_counter() - t0)
+        del params
+    launches = read_launches(wrappers)
+    err = float((out[DEVICE][0] - out["cpu"][0]).abs().max())
+    same = bool(torch.equal(out[DEVICE][1], out["cpu"][1]))
+    finite = bool(torch.isfinite(out[DEVICE][0]).all())
+    emit(phase="serve.identity", arch=SERVE_ARCH, layers=cfg.n_layers,
+         dtype=cfg.dtype, requests=SERVE_REQUESTS,
+         prompt=SERVE_IDENTITY_PROMPT, new_tokens=SERVE_IDENTITY_NEW,
+         prefill_logits_max_abs_diff=err, tol=SERVE_TOL,
+         logits_abs_max=float(out["cpu"][0].abs().max()),
+         tokens_identical=same, card_s=out[DEVICE][2], cpu_s=out["cpu"][2],
+         launches=launches)
+    if not finite or err > SERVE_TOL or not same:
+        raise AssertionError(f"serve.identity: finite {finite}, prefill "
+                             f"logits differ by {err} (tol {SERVE_TOL}), "
+                             f"tokens identical {same}")
+    require_none_launched("serve.identity", launches)
+
+
+def phase_serve_full(wrappers):
+    """qwen2-moe-a2.7b at full width and depth in bfloat16 on the card:
+    the parameter count against the config's arithmetic, peak memory,
+    prefill ms, decode ms a step and tokens/s of SERVE_REQUESTS greedy
+    requests through serve/engine.generate."""
+    from repro_torch.models import api as mapi
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeConfig, generate
+
+    cfg = serve_config()
+    model = mapi.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count = sum(p.numel() for p in params.parameters())
+    want = transformer.expected_param_count(cfg)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    batch = {"tokens": torch.from_numpy(
+        prompts(cfg, SERVE_FULL_PROMPT)).to(DEVICE)}
+    logits, _ = model.prefill(params, batch)
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    stats = {}
+    gen, steps = generate(model, params, batch,
+                          ServeConfig(max_new_tokens=SERVE_FULL_NEW),
+                          stats=stats)
+    gen = gen.cpu()
+    peak = torch.cuda.max_memory_allocated()
+    # one decode step again, traced: its device time by kernel against
+    # its wall time (how much of a step the card is busy)
+    logits, cache = model.prefill(params, batch,
+                                  max_len=SERVE_FULL_PROMPT + 1)
+    token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+
+    def step():
+        model.decode_step(params, cache, token, SERVE_FULL_PROMPT)
+
+    split = device_split(step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    emit(phase="serve.split", step_ms=step_ms,
+         device_busy_share=split["device_us"] / 1e3 / step_ms, **split,
+         **host_split(step))
+    del cache
+    launches = read_launches(wrappers)
+    wall = stats["prefill_s"] + sum(stats["decode_s"])
+    in_range = bool(((gen >= 0) & (gen < cfg.padded_vocab)).all())
+    emit(phase="serve.full", arch=SERVE_ARCH, layers=cfg.n_layers,
+         dtype=cfg.dtype, requests=SERVE_REQUESTS, prompt=SERVE_FULL_PROMPT,
+         new_tokens=steps, params=count, params_expected=want,
+         param_bytes=param_bytes, max_memory_allocated=peak, init_s=init_s,
+         prefill_ms=stats["prefill_s"] * 1e3,
+         decode_ms_median=statistics.median(stats["decode_s"]) * 1e3,
+         decode_ms_min=min(stats["decode_s"]) * 1e3,
+         decode_ms_max=max(stats["decode_s"]) * 1e3,
+         tokens_per_s=SERVE_REQUESTS * steps / wall,
+         decode_tokens_per_s=SERVE_REQUESTS * steps / sum(stats["decode_s"]),
+         prefill_logits_finite=finite, tokens_in_range=in_range,
+         sample_tokens=gen[0, :8].tolist(), launches=launches)
+    del params
+    torch.cuda.empty_cache()
+    if count != want:
+        raise AssertionError(f"serve.full: {count} parameters, the config "
+                             f"gives {want}")
+    if peak <= param_bytes:
+        raise AssertionError(f"serve.full: peak memory {peak} B below the "
+                             f"parameters' {param_bytes} B")
+    if not (finite and in_range and gen.shape == (SERVE_REQUESTS,
+                                                  SERVE_FULL_NEW)):
+        raise AssertionError(f"serve.full: finite {finite}, tokens in "
+                             f"range {in_range}, shape {tuple(gen.shape)}")
+    require_none_launched("serve.full", launches)
+    return launches
+
+
 def run_example(argv, plan, log):
     from repro_torch.examples import cloudsort_oocore
 
@@ -1134,7 +1538,7 @@ def main():
 
 
 def run(log):
-    """The ten phases; verbose output of the example runs goes to `log`."""
+    """The phases; verbose output of the example runs goes to `log`."""
     t_start = time.perf_counter()
 
     # ---- 1. environment ----
@@ -1247,7 +1651,18 @@ def run(log):
     by_phase["recursive"] = phase_recursive(full, wrappers)
     by_phase["cloud"] = phase_cloud(full, wrappers)
 
-    # ---- 10. the kernels line, then the ok line ----
+    # ---- 10.-12. the other users of the shuffle ----
+    by_phase["quickstart"] = phase_quickstart(wrappers, log)
+    by_phase["groupby"] = phase_groupby(wrappers, log)
+    phase_epoch_identity()
+    by_phase["epoch"] = phase_epoch_full(wrappers)
+    by_phase["moe"] = phase_moe_identity(wrappers)
+
+    # ---- 13. serving qwen2-moe-a2.7b ----
+    phase_serve_identity(wrappers)
+    by_phase["serve"] = phase_serve_full(wrappers)
+
+    # ---- 14. the kernels line, then the ok line ----
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_phase"] = {p: c[row["name"]]

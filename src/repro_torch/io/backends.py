@@ -532,6 +532,7 @@ class _FsMultipart(MultipartUpload):
             # traffic — promote the part file directly: one disk write
             # total, no assembly copy or CRC re-read.
             _, (ppath, size, crc) = parts[0]
+            self._clear_emptied_dir()
             os.replace(ppath, self._path)
         else:
             crc, size = 0, 0
@@ -543,6 +544,7 @@ class _FsMultipart(MultipartUpload):
                     out.write(data)
                     crc = zlib.crc32(data, crc)
                     size += len(data)
+            self._clear_emptied_dir()
             os.replace(assembled, self._path)
             for _, (ppath, _, _) in parts:
                 if os.path.exists(ppath):
@@ -550,6 +552,30 @@ class _FsMultipart(MultipartUpload):
         entry = {"size": size, "etag": f"{crc:08x}",
                  "parts": max(len(parts), 1), "metadata": self._metadata}
         return self._b._commit(self._bucket, self._key, entry)
+
+    def _clear_emptied_dir(self) -> None:
+        """Make room for the object file where a directory of the same
+        name stands: the directory that the key's children (`<key>/...`)
+        left behind once they were deleted, as a recursive sort's earlier
+        run leaves `part-X/sub-Y/`. `delete` removes files only, so the
+        empty directory outlives them.
+
+        This cannot race with a concurrent writer: `os.rmdir` is atomic
+        and removes only an empty directory, and a writer of a key under
+        `<key>/` keeps its part files in that directory until its own
+        `complete`, so a live child upload is never removed. A child
+        session that has made the directory but not yet written a part
+        is a write of `<key>/...` beside the object `<key>`, which this
+        backend cannot hold in any case (a file and a directory cannot
+        share a path)."""
+        if not os.path.isdir(self._path):
+            return
+        try:
+            os.rmdir(self._path)
+        except OSError as e:
+            raise ValueError(
+                f"{self._bucket}/{self._key}: cannot write the object where "
+                f"objects under '{self._key}/' still exist") from e
 
     def abort(self) -> None:
         # Sweep by registry AND by tmp-prefix glob: a put_part racing the

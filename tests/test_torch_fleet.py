@@ -344,9 +344,8 @@ def test_recursive_sort_zipf_matches_jax(port, jax_ref):
     port.check(jax_ref["recursive"], port.rplan.output_prefix, port.rec_ck)
     assert not port.store.list_objects("sort", recurse_prefix(port.rplan))
     # A mid-round worker kill in every round's fleet changes no byte. It
-    # writes under fresh prefixes: a rerun into the same filesystem
-    # prefix would meet the directory that a restaged partition's
-    # sub-objects left behind (ROADMAP §3).
+    # writes under fresh prefixes (the rerun into the same prefixes is
+    # the next test).
     kplan = dataclasses.replace(port.rplan, spill_prefix="rec-kill-spill/",
                                 output_prefix="rec-kill-output/")
     crep = recursive_sort(port.store, "sort", num_workers=8, plan=kplan,
@@ -362,6 +361,20 @@ def test_recursive_sort_zipf_matches_jax(port, jax_ref):
     val = valsort.validate_from_store(port.store, "sort", kplan.output_prefix,
                                       port.rec_ck, device="cpu")
     assert val.ok and val.total_records == N, val
+
+
+def test_recursive_sort_rerun_into_same_prefixes(port, jax_ref):
+    # A restaged partition's children leave the directory
+    # <output>/part-X/sub-Y/ on the filesystem; the next run writes
+    # part-X/sub-Y as an object again (ROADMAP §3, fault 3).
+    from repro_torch.shuffle.recursive import recursive_sort
+
+    for _ in range(2):
+        rep = recursive_sort(port.store, "sort", num_workers=8,
+                             plan=port.rplan, device="cpu")
+        assert rep.restaged
+        port.check(jax_ref["recursive"], port.rplan.output_prefix,
+                   port.rec_ck)
 
 
 # ---------------------------------------------------------------------------
