@@ -62,15 +62,25 @@ Run from the repo root on a machine with one H100. It
      requests of 128-token prompts, 32 greedy tokens each, through
      repro_torch.serve.engine.generate: parameter count, peak memory,
      prefill ms, decode ms a step, tokens/s;
- 14. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
+ 14. training: `train.identity`, one step of qwen2-moe-a2.7b at full
+     width, 1 layer, float32, card against CPU (loss, parameters after
+     the step, no pad expert routed); `train.full`, the same model 4
+     layers deep in bfloat16 over float32 masters with remat and 4
+     microbatches, 8 AdamW steps on one batch (losses, step ms, tokens/s,
+     peak memory, a profiler split of one step); `train.launch`, the
+     training driver for tinyllama-1.1b at full width and depth, straight
+     and restarted from a checkpoint (the losses agree); the MoE training
+     example (`train.moe_example`) and the serving driver
+     (`serve.launch`);
+ 15. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
      line (each kernel's launches on the full run, and per phase) and,
      last, the `ok` line.
 
-Each of the phases 5-13 zeroes every kernel's launch count just before
+Each of the phases 5-14 zeroes every kernel's launch count just before
 its runs and reads it just after (a process fleet's children report
 theirs at each phase end), and fails if a kernel of its path never
 launched, or, where the path runs none of the four kernels (the
-group-by, the MoE dispatch and serving), if one did. Then (`<phase>.hold`) it holds each kernel bit-identical to
+group-by, the MoE dispatch, serving and training), if one did. Then (`<phase>.hold`) it holds each kernel bit-identical to
 its plain version on the card at every shape the phase launched it at
 (the wrappers record their launch shapes; children report theirs too),
 on fresh random inputs.
@@ -122,6 +132,21 @@ SERVE_REQUESTS = 4
 SERVE_IDENTITY_PROMPT, SERVE_IDENTITY_NEW = 32, 8
 SERVE_FULL_PROMPT, SERVE_FULL_NEW = 128, 32
 SERVE_TOL = 1e-4  # max |diff| of float32 prefill logits, card vs CPU
+TRAIN_ARCH = "qwen2-moe-a2.7b"
+TRAIN_IDENTITY_LAYERS = 1  # the CPU side's 14.7 GB of state fits the host
+TRAIN_IDENTITY_BATCH = (2, 64)  # sequences x tokens
+TRAIN_FULL_LAYERS = 4  # 43.7 GB of float32 state; all 24 would take 237 GB
+TRAIN_FULL_BATCH = (8, 256)
+TRAIN_FULL_STEPS = 8  # one batch repeated
+TRAIN_LOSS_TOL = 1e-4  # |loss| card vs CPU (tests/test_models.py's bound)
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 2e-4, 2e-5  # parameters after a step
+LAUNCH_ARCH = "tinyllama-1.1b"  # launch/train.py's own example arch
+LAUNCH_ARGS = ["--batch", "8", "--seq", "128"]  # launch/train.py defaults
+LAUNCH_STEPS, LAUNCH_CKPT_STEP = 4, 2
+LAUNCH_RESTART_RTOL = 1e-5  # restarted run's step losses vs the straight run
+LAUNCH_EXTRA = []  # more driver flags (a CPU rehearsal passes --reduced)
+MOE_EXAMPLE_ARGS = ["--steps", "100"]  # the example's batch 16 x seq 128
+SERVE_LAUNCH = dict(arch="tinyllama-1.1b", batch=4, prompt_len=32, max_new=16)
 DEVICE = "cuda"
 BUCKET = "cloudsort"
 
@@ -1511,6 +1536,315 @@ def phase_serve_full(wrappers):
     return launches
 
 
+def train_config(**over):
+    from repro_torch.configs import get
+
+    return dataclasses.replace(get(TRAIN_ARCH), **over)
+
+
+def train_batch(cfg, shape, device):
+    """Batch 0 of the training pipeline (TokenPipeline) for `cfg`."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+
+    b, s = shape
+    return TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                    global_batch=b, num_samples=b * 64),
+                         device=device).batch_at(0)
+
+
+@contextlib.contextmanager
+def routed_experts(seen):
+    """Record the largest expert id the MoE router picks in each call."""
+    from repro_torch.core import moe_dispatch as md
+
+    orig = md.route_topk
+
+    def spy(logits, top_k):
+        weights, ids = orig(logits, top_k)
+        seen.append(int(ids.max()))
+        return weights, ids
+
+    md.route_topk = spy
+    try:
+        yield
+    finally:
+        md.route_topk = orig
+
+
+def phase_train_identity(wrappers):
+    """One training step of qwen2-moe-a2.7b at its published widths,
+    TRAIN_IDENTITY_LAYERS deep, float32 with TF32 off and the sort
+    dispatch, from the same weights and batch on the card and the CPU:
+    the loss within TRAIN_LOSS_TOL, the parameters after the step within
+    rtol TRAIN_PARAM_RTOL / atol TRAIN_PARAM_ATOL, and no expert id at or
+    above the config's 60 routed (the 4 pad experts are masked)."""
+    from repro_torch.models import api as mapi
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.train_step import (TrainConfig, make_train_step,
+                                              train_state_of)
+
+    cfg = train_config(n_layers=TRAIN_IDENTITY_LAYERS, dtype="float32",
+                       remat=False, dispatch_impl="sort")
+    model = mapi.build(cfg)
+    tcfg = TrainConfig()
+    batch = train_batch(cfg, TRAIN_IDENTITY_BATCH, "cpu")
+    zero_launches(wrappers)
+    states, metrics, secs, seen = {}, {}, {}, []
+    with full_float32(), routed_experts(seen):
+        # the same weights on both sides: drawn on the CPU, copied over
+        cpu_params = model.init(torch.Generator().manual_seed(SEED),
+                                trainable=True)
+        card_params = Transformer(cfg, None, trainable=True)
+        card_params.load_state_dict(
+            {n: p.detach().to(DEVICE) for n, p in
+             cpu_params.state_dict().items()}, strict=True, assign=True)
+        for device, params in ((DEVICE, card_params), ("cpu", cpu_params)):
+            state = train_state_of(params, tcfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[device], m = make_train_step(model, tcfg)(
+                state, {k: v.to(device) for k, v in batch.items()})
+            metrics[device] = {k: float(v) for k, v in m.items()}
+            secs[device] = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    cpu_named = dict(states["cpu"]["params"].named_parameters())
+    param_diff, excess = 0.0, -1.0  # excess > 0: outside the bound
+    mu_rel, mu_excess = 0.0, -1.0
+    for name, p in states[DEVICE]["params"].named_parameters():
+        got, want = p.detach().cpu(), cpu_named[name].detach()
+        diff = (got - want).abs()
+        param_diff = max(param_diff, float(diff.max()))
+        excess = max(excess, float((diff - TRAIN_PARAM_ATOL
+                                    - TRAIN_PARAM_RTOL * want.abs()).max()))
+        # the first moments, 0.1 x the clipped gradients: rtol 1e-3, atol
+        # 1e-4 of the leaf's largest (tests/test_torch_models.py's bound)
+        got = states[DEVICE]["opt"]["mu"][name].cpu()
+        want = states["cpu"]["opt"]["mu"][name]
+        top = float(want.abs().max())
+        diff = (got - want).abs()
+        mu_rel = max(mu_rel, float(diff.max()) / max(top, 1e-30))
+        mu_excess = max(mu_excess, float(
+            (diff - 1e-4 * top - 1e-3 * want.abs()).max()))
+    n_params = sum(p.numel() for p in cpu_named.values())
+    del states, cpu_named, card_params, cpu_params
+    torch.cuda.empty_cache()
+    diffs = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k])
+             for k in ("loss", "grad_norm")}
+    emit(phase="train.identity", arch=TRAIN_ARCH, layers=cfg.n_layers,
+         params=n_params, dtype=cfg.dtype, batch=list(TRAIN_IDENTITY_BATCH),
+         dispatch=cfg.dispatch_impl, metrics=metrics,
+         loss_max_abs_diff=diffs["loss"], loss_tol=TRAIN_LOSS_TOL,
+         grad_norm_max_abs_diff=diffs["grad_norm"],
+         params_max_abs_diff=param_diff,
+         params_tol=[TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL],
+         params_worst_excess=excess, grads_max_rel_diff=mu_rel,
+         grads_worst_excess=mu_excess, max_routed_expert=max(seen),
+         n_experts=cfg.n_experts, n_experts_padded=cfg.n_experts_padded,
+         card_step_s=secs[DEVICE], cpu_step_s=secs["cpu"],
+         launches=launches)
+    if diffs["loss"] > TRAIN_LOSS_TOL or excess > 0 or mu_excess > 0 \
+            or not np.isfinite(metrics[DEVICE]["loss"]):
+        raise AssertionError(f"train.identity: loss differs by "
+                             f"{diffs['loss']}, parameters exceed their "
+                             f"bound by {excess}, gradients by {mu_excess}")
+    if max(seen) >= cfg.n_experts:
+        raise AssertionError(f"train.identity: routed to expert "
+                             f"{max(seen)} of {cfg.n_experts}")
+    require_none_launched("train.identity", launches)
+    return launches
+
+
+def phase_train_full(wrappers):
+    """qwen2-moe-a2.7b at its published widths, TRAIN_FULL_LAYERS deep,
+    bfloat16 compute over float32 masters, remat on, the sort dispatch
+    (ep_size 1, capacity factor 1.25), the config's 4 microbatches:
+    TRAIN_FULL_STEPS AdamW steps on one repeated batch; each step's loss
+    (finite, the last below the first), step ms, tokens/s, peak memory,
+    and a torch.profiler split of one more step."""
+    from repro_torch.models import api as mapi
+    from repro_torch.models import transformer
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+
+    cfg = train_config(n_layers=TRAIN_FULL_LAYERS, dispatch_impl="sort")
+    model = mapi.build(cfg)
+    tcfg = TrainConfig(opt=OptConfig(warmup_steps=2,
+                                     total_steps=TRAIN_FULL_STEPS),
+                       microbatches=cfg.train_microbatches)
+    batch = train_batch(cfg, TRAIN_FULL_BATCH, DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(wrappers)
+    state = init_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(SEED), tcfg)
+    params = state["params"]
+    count = sum(p.numel() for p in params.parameters())
+    want = transformer.expected_param_count(cfg)
+    state_bytes = 16 * count  # float32 masters, grads, mu, nu
+    step = make_train_step(model, tcfg)
+    losses, step_s = [], []
+    for _ in range(TRAIN_FULL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches(wrappers)
+
+    def one_step():
+        step(state, batch)
+
+    split = device_split(one_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    split_ms = (time.perf_counter() - t0) * 1e3
+    emit(phase="train.split", step_ms=split_ms,
+         device_busy_share=split["device_us"] / 1e3 / split_ms, **split,
+         **host_split(one_step))
+    del state, params, step
+    torch.cuda.empty_cache()
+    steady = step_s[1:]
+    tokens = TRAIN_FULL_BATCH[0] * TRAIN_FULL_BATCH[1]
+    emit(phase="train.full", arch=TRAIN_ARCH, layers=cfg.n_layers,
+         dtype=cfg.dtype, remat=cfg.remat, dispatch=cfg.dispatch_impl,
+         capacity_factor=cfg.moe_capacity_factor,
+         microbatches=tcfg.microbatches, batch=list(TRAIN_FULL_BATCH),
+         params=count, params_expected=want, state_bytes=state_bytes,
+         max_memory_allocated=peak, losses=losses,
+         step_ms_median=statistics.median(steady) * 1e3,
+         step_ms_min=min(steady) * 1e3, step_ms_max=max(steady) * 1e3,
+         first_step_ms=step_s[0] * 1e3,
+         tokens_per_s=tokens / statistics.median(steady),
+         launches=launches)
+    if count != want:
+        raise AssertionError(f"train.full: {count} parameters, the config "
+                             f"gives {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train.full: losses {losses}")
+    if peak <= state_bytes:
+        raise AssertionError(f"train.full: peak memory {peak} B below the "
+                             f"state's {state_bytes} B")
+    require_none_launched("train.full", launches)
+    return launches
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_train_launch(wrappers, log):
+    """The training driver (repro_torch.launch.train.main) for
+    tinyllama-1.1b at full width and depth: run A straight to step
+    LAUNCH_STEPS, run B to step LAUNCH_CKPT_STEP writing its checkpoint,
+    run C restarting from B's checkpoint to LAUNCH_STEPS; C's step losses
+    equal A's within LAUNCH_RESTART_RTOL. The checkpoints are deleted."""
+    from repro_torch.launch import train as tlaunch
+
+    ck = os.path.join(WORK_DIR, "ckpt-launch")
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--arch", LAUNCH_ARCH, *LAUNCH_ARGS, *LAUNCH_EXTRA,
+            "--log-every", "1", "--device", DEVICE]
+    zero_launches(wrappers)
+    runs, secs = {}, {}
+    for name, extra in (("A", ["--steps", str(LAUNCH_STEPS)]),
+                        ("B", ["--steps", str(LAUNCH_CKPT_STEP),
+                               "--ckpt-dir", ck]),
+                        ("C", ["--steps", str(LAUNCH_STEPS),
+                               "--ckpt-dir", ck])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            runs[name] = tlaunch.main(base + extra)
+        secs[name] = time.perf_counter() - t0
+        if name == "B":
+            ckpt_bytes = dir_bytes(os.path.join(
+                ck, f"step_{LAUNCH_CKPT_STEP:08d}"))
+        torch.cuda.empty_cache()
+    launches = read_launches(wrappers)
+    shutil.rmtree(ck, ignore_errors=True)
+    a, b, c = runs["A"], runs["B"], runs["C"]
+    rel = {s: abs(c["losses"][s] - a["losses"][s]) / abs(a["losses"][s])
+           for s in range(LAUNCH_CKPT_STEP, LAUNCH_STEPS)}
+    emit(phase="train.launch", arch=LAUNCH_ARCH, args=LAUNCH_ARGS,
+         losses={k: r["losses"] for k, r in runs.items()},
+         restart_step=c["start"], restart_rel_diff=rel,
+         restart_rtol=LAUNCH_RESTART_RTOL,
+         restart_identical=all(v == 0 for v in rel.values()),
+         ckpt_bytes=ckpt_bytes, save_s=b["save_s"], load_s=c["load_s"],
+         final_save_s=c["save_s"], run_s=secs,
+         tokens_per_s=a["tokens_per_s"], launches=launches)
+    if c["start"] != LAUNCH_CKPT_STEP or max(rel.values()) > \
+            LAUNCH_RESTART_RTOL:
+        raise AssertionError(f"train.launch: restart at {c['start']}, "
+                             f"relative loss differences {rel}")
+    if not all(np.isfinite(list(a["losses"].values()))):
+        raise AssertionError(f"train.launch: losses {a['losses']}")
+    require_none_launched("train.launch", launches)
+    return launches
+
+
+def phase_train_moe_example(wrappers, log):
+    """The port's examples/train_moe.py (dp 2 x ep 4 as a batch axis) on
+    the card: losses at steps 0, 25, 50, 75 and the last, tokens/s."""
+    from repro_torch.examples import train_moe
+
+    ck = os.path.join(WORK_DIR, "ckpt-moe")
+    shutil.rmtree(ck, ignore_errors=True)
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        out = train_moe.main(MOE_EXAMPLE_ARGS + ["--device", DEVICE,
+                                                 "--ckpt-dir", ck])
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    losses = out["losses"]
+    picks = sorted({s for s in (0, 25, 50, 75) if s < len(losses)}
+                   | {len(losses) - 1})
+    emit(phase="train.moe_example", steps=len(losses), params=out["params"],
+         losses={s: losses[s] for s in picks},
+         tokens_per_s=out["tokens_per_s"], seconds=wall, launches=launches)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train.moe_example: losses {losses}")
+    require_none_launched("train.moe_example", launches)
+    return launches
+
+
+def phase_serve_launch(wrappers, log):
+    """The serving driver (repro_torch.launch.serve.main) for
+    tinyllama-1.1b at full width and depth: 4 x 32-token prompts, 16 new
+    tokens; tokens/s."""
+    from repro_torch.configs import get
+    from repro_torch.launch import serve as tserve
+
+    argv = [a for k, v in SERVE_LAUNCH.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+    zero_launches(wrappers)
+    with contextlib.redirect_stdout(log):
+        out = tserve.main(argv + LAUNCH_EXTRA + ["--device", DEVICE])
+    launches = read_launches(wrappers)
+    toks = out["tokens"].cpu()
+    in_range = bool(((toks >= 0) & (toks < get(
+        SERVE_LAUNCH["arch"]).padded_vocab)).all())
+    torch.cuda.empty_cache()
+    emit(phase="serve.launch", **SERVE_LAUNCH,
+         tokens_shape=list(toks.shape), seconds=out["seconds"],
+         tokens_per_s=out["tokens_per_s"], tokens_in_range=in_range,
+         sample_tokens=toks[0, :8].tolist(), launches=launches)
+    want = (SERVE_LAUNCH["batch"], SERVE_LAUNCH["max_new"])
+    if not in_range or tuple(toks.shape) != want:
+        raise AssertionError(f"serve.launch: tokens in range {in_range}, "
+                             f"shape {tuple(toks.shape)}")
+    require_none_launched("serve.launch", launches)
+    return launches
+
+
 def run_example(argv, plan, log):
     from repro_torch.examples import cloudsort_oocore
 
@@ -1662,7 +1996,14 @@ def run(log):
     phase_serve_identity(wrappers)
     by_phase["serve"] = phase_serve_full(wrappers)
 
-    # ---- 14. the kernels line, then the ok line ----
+    # ---- 14. training qwen2-moe-a2.7b and tinyllama-1.1b, the drivers ----
+    by_phase["train.identity"] = phase_train_identity(wrappers)
+    by_phase["train.full"] = phase_train_full(wrappers)
+    by_phase["train.launch"] = phase_train_launch(wrappers, log)
+    by_phase["train.moe_example"] = phase_train_moe_example(wrappers, log)
+    by_phase["serve.launch"] = phase_serve_launch(wrappers, log)
+
+    # ---- 15. the kernels line, then the ok line ----
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_phase"] = {p: c[row["name"]]

@@ -1,17 +1,19 @@
-"""Unified model API: build(cfg) -> ModelApi with the serving entry points.
+"""Unified model API: build(cfg) -> ModelApi with train and serve entry points.
 
 Twin of src/repro/models/api.py for the `dense` and `moe` families; the
 other families raise NotImplementedError naming the ROADMAP item that
-ports them. Training (`loss`), the abstract shape specs, `init_cache`
-and the benchmark shape cells serve the training and dry-run tooling,
-which is not ported yet, and have no twin here (`prefill` makes the
-cache).
+ports them. The abstract shape specs and the benchmark shape cells serve
+the dry-run tooling, which is not ported yet, and have no twin here.
 
 `params` is a `transformer.Transformer` (an nn.Module holding the
-weights): `init(generator)` draws them on the generator's device;
-`params_from_reference(tree, device=...)` carries the JAX package's
-parameter pytree (numpy arrays, block leaves stacked (L, ...)) across,
-so that both packages compute from the same weights.
+weights): `init(generator, trainable=...)` draws them on the generator's
+device, as float32 masters with gradients for training or in the
+config's dtype for serving; `params_from_reference(tree, device=...)`
+carries the JAX package's parameter pytree (numpy arrays, block leaves
+stacked (L, ...)) across, so that both packages compute from the same
+weights. `build(cfg, ep_size=, dp=)` stands in for the reference's
+`mesh=` / `dp_axes=`: the MoE dispatch runs the dp x ep_size mesh shards
+as a batch axis (models/moe.py).
 """
 from __future__ import annotations
 
@@ -29,44 +31,73 @@ from repro_torch.models.config import ArchConfig
 @dataclasses.dataclass
 class ModelApi:
     cfg: ArchConfig
-    init: Callable[..., Any]  # (generator) -> params
+    init: Callable[..., Any]  # (generator, trainable=False) -> params
     forward: Callable[..., Any]  # (params, batch) -> logits
+    loss: Callable[..., Any]  # (params, batch) -> scalar
     prefill: Callable[..., Any]  # (params, batch, max_len) -> (logits, cache)
     decode_step: Callable[..., Any]  # (params, cache, token, pos) -> (logits, cache)
-    params_from_reference: Callable[..., Any]  # (tree, device=) -> params
+    init_cache: Callable[..., Any]  # (batch, max_len, device=) -> cache
+    params_from_reference: Callable[..., Any]  # (tree, device=, trainable=) -> params
 
 
-def params_from_reference(cfg: ArchConfig, tree, *, device="cuda"):
+def ce_loss(logits, labels):
+    """Mean next-token cross-entropy: the twin of the reference's
+    `_ce_loss`, which scores logits[:, :-1] against labels[:, 1:]. The
+    reference's pipeline already shifts its labels by one, so the two
+    together train position i on token i+2 (ROADMAP.md §3 fault 5); the
+    port keeps these semantics to stay comparable."""
+    lg = logits[:, :-1].float()
+    tgt = labels[:, 1:].long()
+    m = lg.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
+    tgt_logit = lg.gather(-1, tgt[..., None])[..., 0]
+    return (lse - tgt_logit).mean()
+
+
+def params_from_reference(cfg: ArchConfig, tree, *, device="cuda",
+                          trainable: bool = False):
     """The port's model holding the reference's weights: `tree` is the
     JAX parameter pytree as nested dicts of numpy arrays (e.g.
-    `jax.tree.map(np.asarray, params)`), cast to the config's dtype."""
+    `jax.tree.map(np.asarray, params)`). Serving casts them to the
+    config's dtype; `trainable` keeps them as float32 masters with
+    gradients."""
     dev = u32.resolve_device(device)
-    model = transformer.Transformer(cfg, None)  # shapes only, on "meta"
-    state = {name: torch.from_numpy(np.array(arr)).to(
-        device=dev, dtype=cfg.compute_dtype)
-        for name, arr in transformer.reference_state(cfg, tree).items()}
+    dt = transformer.param_dtype(cfg, trainable)
+    model = transformer.Transformer(cfg, None, trainable=trainable)
+    state = {name: torch.from_numpy(np.array(arr)).to(device=dev, dtype=dt)
+             for name, arr in transformer.reference_state(cfg, tree).items()}
     model.load_state_dict(state, strict=True, assign=True)
-    return model.requires_grad_(False)
+    return model.requires_grad_(trainable)
 
 
-def build(cfg: ArchConfig) -> ModelApi:
+def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1) -> ModelApi:
     transformer.check_family(cfg)
+    mesh = dict(ep_size=ep_size, dp=dp)
 
-    def init(generator: torch.Generator):
-        return transformer.init_params(cfg, generator)
+    def init(generator: torch.Generator, *, trainable: bool = False):
+        return transformer.init_params(cfg, generator, trainable=trainable)
 
     def forward(params, batch):
-        return params.forward(batch["tokens"])
+        return params.forward(batch["tokens"], **mesh)
+
+    def loss(params, batch):
+        return ce_loss(forward(params, batch), batch["labels"])
 
     def prefill(params, batch, max_len=None):
-        return params.prefill(batch["tokens"], max_len=max_len)
+        return params.prefill(batch["tokens"], max_len=max_len, **mesh)
 
     def decode_step(params, cache, token, pos):
-        return params.decode_step(cache, token, pos)
+        return params.decode_step(cache, token, pos, **mesh)
 
-    def from_reference(tree, *, device="cuda"):
-        return params_from_reference(cfg, tree, device=device)
+    def init_cache(batch: int, max_len: int, *, device="cuda"):
+        return transformer.init_cache(cfg, batch, max_len,
+                                      u32.resolve_device(device))
 
-    return ModelApi(cfg=cfg, init=init, forward=forward, prefill=prefill,
-                    decode_step=decode_step,
+    def from_reference(tree, *, device="cuda", trainable: bool = False):
+        return params_from_reference(cfg, tree, device=device,
+                                     trainable=trainable)
+
+    return ModelApi(cfg=cfg, init=init, forward=forward, loss=loss,
+                    prefill=prefill, decode_step=decode_step,
+                    init_cache=init_cache,
                     params_from_reference=from_reference)

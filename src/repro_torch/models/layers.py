@@ -7,10 +7,11 @@ generator's device (given None, they allocate shapes only, on "meta").
 
 Numerics as in the reference: a layer casts its weights to the
 activation's dtype at use; RMSNorm and RoPE compute in float32 and cast
-back; the tied readout is float32. The reference keeps float32 "master"
-parameters; the port holds them in the config's dtype (the reference's
-cast at use then changes nothing). The reference's `constrain_*`
-helpers only annotate a mesh sharding and have no twin.
+back; the tied readout is float32. A training model keeps float32
+"master" parameters, as the reference does, and the cast at use carries
+the gradient back to them in float32; a serving model holds them in the
+config's dtype (the cast at use then changes nothing). The reference's
+`constrain_*` helpers only annotate a mesh sharding and have no twin.
 """
 from __future__ import annotations
 

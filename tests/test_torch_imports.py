@@ -27,7 +27,7 @@ chip_smoke.emit, chip_smoke.device_ms, chip_smoke.check_equal
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
-print(len(names))
+print(",".join(names))
 print(",".join(bad))
 """
 
@@ -46,8 +46,13 @@ def test_port_imports_without_jax_or_repro():
         [sys.executable, "-c", _DRIVER.format(repo=REPO)],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    count, bad = proc.stdout.splitlines()[-2:]
-    assert int(count) >= 80, proc.stdout  # every module of slices 1-5
+    names, bad = proc.stdout.splitlines()[-2:]
+    names = set(names.split(","))
+    assert len(names) >= 90, proc.stdout  # every module of slices 1-6
+    for mod in ("train.optimizer", "train.train_step", "train.grad_compress",
+                "train.checkpoint", "launch.train", "launch.serve",
+                "launch.reshard", "examples.train_moe"):
+        assert f"repro_torch.{mod}" in names, mod
     assert bad == "", f"port pulled in: {bad}"
 
 

@@ -6,7 +6,11 @@ Every comparison carries the JAX model's weights across with
 `params_from_reference` (the port cannot reproduce JAX's PRNG), on the
 reduced float32 configs the reference's own tests use; prompts are drawn
 with numpy from a seed. The JAX models run in-process on one CPU device
-(no mesh: the single-shard "dense" MoE dispatch). Bounds: logits within
+(no mesh: the single-shard "dense" MoE dispatch); on a config whose
+experts are padded (every reduced MoE config: 8 experts in 16 columns)
+the reference routes with its pad experts masked
+(`test_torch_moe.masked_reference_router`: the port never routes to a
+pad expert, ROADMAP.md §3 fault 4). Bounds: logits within
 1e-4 of JAX's (float32, the same math in another summation order; the
 reference's MoE dispatch bound), prefill + decode_step within 5e-3 of
 the full forward (tests/test_models.py's decode-parity bound), greedy
@@ -26,10 +30,14 @@ from repro.configs import ARCH_IDS
 from repro.configs import get as jget
 from repro.models import api as japi
 from repro.serve import engine as jengine
+from repro.train import optimizer as jopt
+from repro.train import train_step as jtrain
 from repro_torch.configs import get as tget
 from repro_torch.models import api as tapi
 from repro_torch.models import transformer
 from repro_torch.serve import engine as tengine
+from repro_torch.train import train_step as ttrain
+from test_torch_moe import masked_reference_router
 
 torch.set_num_threads(2)
 
@@ -56,8 +64,13 @@ class _Case:
             jax.tree.map(np.asarray, self.jparams), device="cpu")
         self.tokens = np.random.default_rng(0).integers(
             0, self.jcfg.vocab, (B, S)).astype(np.int32)
-        self.jlogits = np.asarray(self.jm.forward(
-            self.jparams, {"tokens": jnp.asarray(self.tokens)}))
+        with self.reference():
+            self.jlogits = np.asarray(self.jm.forward(
+                self.jparams, {"tokens": jnp.asarray(self.tokens)}))
+
+    def reference(self):
+        """The context every JAX run of this case is traced in."""
+        return masked_reference_router(self.jcfg)
 
     def batch(self, tokens=None):
         return {"tokens": torch.from_numpy(
@@ -152,9 +165,10 @@ def test_prefill_and_decode_match_forward(arch):
 @pytest.mark.parametrize("arch", PORTED)
 def test_greedy_generate_matches_jax(arch):
     c = case(arch)
-    want, jsteps = jengine.generate(
-        c.jm, c.jparams, {"tokens": jnp.asarray(c.tokens)},
-        jengine.ServeConfig(max_new_tokens=NEW))
+    with c.reference():
+        want, jsteps = jengine.generate(
+            c.jm, c.jparams, {"tokens": jnp.asarray(c.tokens)},
+            jengine.ServeConfig(max_new_tokens=NEW))
     got, steps = tengine.generate(c.tm, c.params, c.batch(),
                                   tengine.ServeConfig(max_new_tokens=NEW))
     assert got.dtype == torch.int32 and steps == jsteps == NEW
@@ -167,9 +181,10 @@ def test_generate_stops_at_eos_like_jax():
                                tengine.ServeConfig(max_new_tokens=NEW))
     eos = int(free[0, 2])  # row 0 stops after its third token
     cfg = dict(max_new_tokens=NEW, eos_id=eos)
-    want, _ = jengine.generate(c.jm, c.jparams,
-                               {"tokens": jnp.asarray(c.tokens)},
-                               jengine.ServeConfig(**cfg))
+    with c.reference():
+        want, _ = jengine.generate(c.jm, c.jparams,
+                                   {"tokens": jnp.asarray(c.tokens)},
+                                   jengine.ServeConfig(**cfg))
     stats = {}
     got, _ = tengine.generate(c.tm, c.params, c.batch(),
                               tengine.ServeConfig(**cfg), stats=stats)
@@ -199,6 +214,202 @@ def test_decode_position_outside_the_cache_raises():
     with pytest.raises(IndexError, match="outside the cache"):
         c.tm.decode_step(c.params, cache,
                          torch.from_numpy(c.tokens[:, :1]), S)
+
+
+# ---------------------------------------------------------------------------
+# training: the loss, one train step and microbatches against JAX
+# ---------------------------------------------------------------------------
+
+# (arch, config overrides, TrainConfig overrides): every ported arch, the
+# MoE archs with the sort and the onehot dispatch, and the error-feedback
+# compression path
+TRAIN_CASES = {
+    "tinyllama_1_1b": ("tinyllama_1_1b", {}, {}),
+    "granite_3_8b": ("granite_3_8b", {}, {}),
+    "mistral_nemo_12b": ("mistral_nemo_12b", {}, {}),
+    "qwen2_moe_a2_7b-sort": ("qwen2_moe_a2_7b", {"dispatch_impl": "sort"}, {}),
+    "qwen2_moe_a2_7b-onehot": ("qwen2_moe_a2_7b", {"dispatch_impl": "onehot"},
+                               {}),
+    "moonshot_v1_16b_a3b-sort": ("moonshot_v1_16b_a3b",
+                                 {"dispatch_impl": "sort"}, {}),
+    "moonshot_v1_16b_a3b-onehot": ("moonshot_v1_16b_a3b",
+                                   {"dispatch_impl": "onehot"}, {}),
+    "tinyllama_1_1b-ef": ("tinyllama_1_1b", {}, {"pod_grad_compress": True}),
+}
+
+
+def _train_batch(cfg, b=4, s=16, seed=1):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
+def _jax_step(c, batch, **tover):
+    """One reference train step from the case's weights (the masked
+    router inside): (new state, metrics)."""
+    tcfg = jtrain.TrainConfig(**tover)
+    state = {"params": c.jparams, "opt": jopt.init_opt_state(c.jparams)}
+    if tcfg.pod_grad_compress:
+        from repro.train import grad_compress as jgc
+        state["ef_residual"] = jgc.init_residual(c.jparams)
+    with c.reference():
+        return jtrain.make_train_step(c.jm, tcfg)(
+            state, {k: jnp.asarray(v) for k, v in batch.items()})
+
+
+def _torch_step(c, batch, **tover):
+    tcfg = ttrain.TrainConfig(**tover)
+    params = c.tm.params_from_reference(jax.tree.map(np.asarray, c.jparams),
+                                        device="cpu", trainable=True)
+    state = ttrain.train_state_of(params, tcfg)
+    return ttrain.make_train_step(c.tm, tcfg)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+def _assert_states_close(c, got, want, keys=("mu",)):
+    """Parameters at rtol 2e-4 / atol 2e-5 (tests/test_models.py's
+    bounds); the first moments, 0.1 x the clipped gradients, at rtol
+    1e-3 / atol 1e-4 of the leaf's largest (float32 sums in another
+    order); the error-feedback residual, at most half an int8 step, at
+    atol 1e-3 of its largest (the gradients' float32 differences, passed
+    on)."""
+    ref = transformer.reference_state(c.tcfg, jax.tree.map(np.asarray,
+                                                           want["params"]))
+    for name, p in got["params"].named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[name], rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+    for key in keys:
+        tree = want["opt"][key] if key in ("mu", "nu") else want[key]
+        ref = transformer.reference_state(c.tcfg,
+                                          jax.tree.map(np.asarray, tree))
+        mine = got["opt"][key] if key in ("mu", "nu") else got[key]
+        share = 1e-4 if key == "mu" else 1e-3
+        for name, arr in ref.items():
+            np.testing.assert_allclose(
+                mine[name].numpy(), arr, rtol=1e-3,
+                atol=share * float(np.abs(arr).max()) + 1e-12,
+                err_msg=f"{key} {name}")
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_CASES))
+def test_loss_and_train_step_match_jax(name):
+    arch, over, tover = TRAIN_CASES[name]
+    c = case(arch, **over)
+    batch = _train_batch(c.tcfg)
+    with c.reference():
+        jloss = float(c.jm.loss(c.jparams, {k: jnp.asarray(v)
+                                            for k, v in batch.items()}))
+    params = c.tm.params_from_reference(jax.tree.map(np.asarray, c.jparams),
+                                        device="cpu", trainable=True)
+    tloss = c.tm.loss(params, {k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+    assert tloss.dtype == torch.float32 and tloss.requires_grad
+    assert abs(float(tloss.detach()) - jloss) < 1e-4
+    want, jm = _jax_step(c, batch, **tover)
+    got, tm = _torch_step(c, batch, **tover)
+    assert abs(float(tm["loss"]) - float(jm["loss"])) < 1e-4
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-4)
+    np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
+    assert int(got["opt"]["step"]) == 1
+    _assert_states_close(c, got, want, ("mu", "ef_residual")
+                         if tover else ("mu",))
+
+
+def test_microbatched_step_matches_the_full_step_and_jax():
+    """tests/test_models.py's microbatch test on the port, and the port's
+    microbatched step against the reference's."""
+    c = case("tinyllama_1_1b", n_layers=2, vocab=64)
+    batch = _train_batch(c.tcfg, s=16, seed=2)
+    one, m1 = _torch_step(c, batch)
+    four, m4 = _torch_step(c, batch, microbatches=4)
+    assert abs(float(m1["loss"]) - float(m4["loss"])) < 1e-4
+    p1 = dict(one["params"].named_parameters())
+    for name, p in four["params"].named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   p1[name].detach().numpy(), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+    want, jm4 = _jax_step(c, batch, microbatches=4)
+    assert abs(float(m4["loss"]) - float(jm4["loss"])) < 1e-4
+    _assert_states_close(c, four, want)
+
+
+def test_trainable_model_holds_float32_masters():
+    """Training: float32 masters with gradients, cast to the compute dtype
+    at use (bf16 here), float32 gradients back; serving: the config's
+    dtype without gradients."""
+    cfg = tget("qwen2_moe_a2_7b").reduced(dtype="bfloat16", remat=False)
+    model = tapi.build(cfg)
+    gen = torch.Generator().manual_seed(3)
+    train = model.init(gen, trainable=True)
+    serve = model.init(torch.Generator().manual_seed(3))
+    assert all(p.dtype == torch.float32 and p.requires_grad
+               for p in train.parameters())
+    assert all(p.dtype == torch.bfloat16 and not p.requires_grad
+               for p in serve.parameters())
+    batch = {k: torch.from_numpy(v) for k, v in _train_batch(cfg).items()}
+    logits = model.forward(train, batch)
+    assert logits.dtype == torch.float32 and logits.requires_grad
+    model.loss(train, batch).backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in train.parameters())
+    assert not model.forward(serve, batch).requires_grad
+
+
+def test_remat_recomputes_the_same_gradients():
+    c = case("qwen2_moe_a2_7b")
+    batch = {k: torch.from_numpy(v) for k, v in _train_batch(c.tcfg).items()}
+    grads = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(c.tcfg, remat=remat)
+        model = tapi.build(cfg)
+        params = model.params_from_reference(
+            jax.tree.map(np.asarray, c.jparams), device="cpu",
+            trainable=True)
+        model.loss(params, batch).backward()
+        grads[remat] = {n: p.grad for n, p in params.named_parameters()}
+    for name, g in grads[True].items():
+        assert torch.equal(g, grads[False][name]), name
+
+
+def test_mesh_model_matches_the_single_shard_model():
+    """build(cfg, ep_size=4, dp=2) routes training tokens through the
+    sharded sort dispatch and a decode step through ep_replicated; with
+    capacity to spare both compute what the single-shard model does."""
+    c = case("qwen2_moe_a2_7b", dispatch_impl="sort")
+    tree = jax.tree.map(np.asarray, c.jparams)
+    mesh = tapi.build(c.tcfg, ep_size=4, dp=2)
+    single = tapi.build(c.tcfg)
+    pm = mesh.params_from_reference(tree, device="cpu", trainable=True)
+    ps = single.params_from_reference(tree, device="cpu", trainable=True)
+    tokens = torch.from_numpy(c.tokens[:, :16])  # 32 tokens over 8 shards
+    lm = mesh.forward(pm, {"tokens": tokens})
+    ls = single.forward(ps, {"tokens": tokens})
+    assert float((lm - ls).detach().abs().max()) < 1e-5
+    lm.square().mean().backward()
+    ls.square().mean().backward()
+    gs = dict(ps.named_parameters())
+    for name, p in pm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), gs[name].grad.numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    # prefill of 2 x 12 tokens over the 8 shards, then one decode step
+    _, cm = mesh.prefill(pm, {"tokens": tokens[:, :12]}, max_len=16)
+    _, cs = single.prefill(ps, {"tokens": tokens[:, :12]}, max_len=16)
+    dm, _ = mesh.decode_step(pm, cm, tokens[:, 12:13], 12)
+    ds, _ = single.decode_step(ps, cs, tokens[:, 12:13], 12)
+    assert float((dm - ds).abs().max()) < 1e-5
+    assert float((dm[:, 0] - ls[:, 12].detach()).abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "qwen2_moe_a2_7b"])
+def test_init_cache_matches_jax(arch):
+    c = case(arch)
+    want = c.jm.init_cache(B, S)
+    got = c.tm.init_cache(B, S, device="cpu")
+    assert sorted(got) == sorted(want) == ["k", "v"]
+    for k in got:
+        assert tuple(got[k].shape) == want[k].shape
+        assert got[k].dtype == torch.float32 and not got[k].any()
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,17 @@ at ep_size=1, the model's MoE FFN) run the JAX functions in-process.
 Inputs are drawn with numpy from a seed. Bounds are the reference tests'
 own (tests/test_exoshuffle.py): 1e-4 for the sort dispatch, 2e-5 for the
 decode dispatch.
+
+The port's router never selects a pad expert (column >= n_experts of a
+config whose expert count is padded to 16); the reference's does
+(ROADMAP.md §3, fault 4). So a comparison on a config with pads holds
+the port against the reference with its `route_topk` wrapped to mask the
+pad columns to -inf first (`masked_reference_router`; the reference's
+moe_ffn calls it as `md.route_topk`, and every JAX trace of such a
+comparison is made inside the wrapper). The reference itself is not
+edited.
 """
+import contextlib
 import json
 
 import jax
@@ -22,6 +32,7 @@ from helpers import run_with_devices
 from repro.core import moe_dispatch as jmd
 from repro.models import moe as jmoe
 from repro_torch.core import moe_dispatch as tmd
+from repro_torch.models import layers as tlayers
 from repro_torch.models import moe as tmoe
 
 torch.set_num_threads(2)
@@ -34,6 +45,43 @@ SORTS = {
 }
 # the decode dispatch: mesh (2, 4), E, K, T, d, d_ff
 DECODE = (8, 2, 16, 32, 64)
+
+
+def masked_route_topk(route_topk, n_experts: int):
+    """`route_topk` with the router columns >= n_experts at -inf."""
+    def masked(gate_logits, top_k):
+        col = jnp.arange(gate_logits.shape[-1])
+        return route_topk(jnp.where(col >= n_experts, -jnp.inf, gate_logits),
+                          top_k)
+    return masked
+
+
+@contextlib.contextmanager
+def masked_reference_router(cfg):
+    """The reference routing as the config's contract says: inside, the
+    JAX package's route_topk masks the pad experts of `cfg` (a no-op for
+    a config without pads)."""
+    orig = jmd.route_topk
+    if cfg.n_experts < cfg.n_experts_padded:
+        jmd.route_topk = masked_route_topk(orig, cfg.n_experts)
+    try:
+        yield
+    finally:
+        jmd.route_topk = orig
+
+
+#: The same wrapper for a JAX run in a run_with_devices subprocess, to be
+#: executed before its first trace: `.format(n_experts=...)`.
+MASKED_ROUTER_SRC = """
+import jax.numpy as _jnp
+from repro.core import moe_dispatch as _md
+_route_topk = _md.route_topk
+def _masked_route_topk(gate_logits, top_k):
+    col = _jnp.arange(gate_logits.shape[-1])
+    return _route_topk(_jnp.where(col >= {n_experts}, -_jnp.inf, gate_logits),
+                       top_k)
+_md.route_topk = _masked_route_topk
+"""
 
 
 def _inputs(e, k, d, f, t, seed=0):
@@ -174,8 +222,10 @@ def test_moe_ffn_matches_jax(impl):
     p = jmoe.init_moe_ffn(jax.random.PRNGKey(1), jcfg)
     x = np.random.default_rng(5).normal(size=(2, 12, jcfg.d_model)).astype(
         np.float32)
-    want = jmoe.moe_ffn(p, jcfg, jnp.asarray(x))
-    ffn = tmoe.MoeFFN(tcfg, None)
+    assert jcfg.n_experts < jcfg.n_experts_padded  # 8 experts, 16 columns
+    with masked_reference_router(jcfg):
+        want = jmoe.moe_ffn(p, jcfg, jnp.asarray(x))
+    ffn = tmoe.MoeFFN(tcfg, None, dtype=torch.float32)
     state = {k: torch.from_numpy(np.array(v)) for k, v in p.items()
              if k != "shared"}
     state.update({f"shared.{k}": torch.from_numpy(np.array(v))
@@ -183,6 +233,120 @@ def test_moe_ffn_matches_jax(impl):
     ffn.load_state_dict(state, strict=True, assign=True)
     got = ffn(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the pad experts (fault 4): never routed to, on every dispatch path
+# ---------------------------------------------------------------------------
+
+# name: (dispatch_impl, ep_size, dp, (B, S))
+PATHS = {"dense": ("dense", 1, 1, (2, 24)),
+         "onehot": ("onehot", 1, 1, (2, 24)),
+         "sort_mesh": ("sort", 4, 2, (2, 24)),
+         "sort_decode": ("sort", 4, 2, (8, 1))}
+
+
+def _moe_case(n_experts, impl="dense", seed=6, shape=(2, 24)):
+    """A reduced qwen2-moe FFN (float32 masters with gradients) with
+    `n_experts` real experts of 16 columns, and its input."""
+    from repro_torch.configs import get as tget
+
+    cfg = tget("qwen2-moe-a2.7b").reduced(dtype="float32",
+                                          dispatch_impl=impl,
+                                          n_experts=n_experts)
+    ffn = tmoe.MoeFFN(cfg, torch.Generator().manual_seed(seed),
+                      dtype=torch.float32, requires_grad=True)
+    x = np.random.default_rng(seed).normal(size=shape + (cfg.d_model,))
+    return cfg, ffn, torch.from_numpy(x.astype(np.float32))
+
+
+def _spy(monkeypatch):
+    """Record the logits and ids of every route_topk call of the port."""
+    calls = []
+
+    def route_topk(logits, top_k):
+        w, ids = ROUTE_TOPK(logits, top_k)
+        calls.append((logits.detach(), w.detach(), ids))
+        return w, ids
+
+    monkeypatch.setattr(tmd, "route_topk", route_topk)
+    return calls
+
+
+ROUTE_TOPK = tmd.route_topk
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_router_never_selects_a_pad_expert(monkeypatch, path):
+    impl, ep, dp, shape = PATHS[path]
+    cfg, ffn, x = _moe_case(8, impl, shape=shape)
+    assert cfg.n_experts_padded == 16
+    with torch.no_grad():  # pads would win every token without the mask
+        ffn.router[:, cfg.n_experts:] = 10.0 * ffn.router.abs().max()
+    calls = _spy(monkeypatch)
+    out = ffn(x, ep_size=ep, dp=dp)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    (logits, w, ids), = calls
+    assert int(ids.max()) < cfg.n_experts
+    probs = torch.softmax(logits, dim=-1)
+    assert bool((probs[:, cfg.n_experts:] == 0).all())
+    np.testing.assert_allclose(probs[:, :cfg.n_experts].sum(-1).numpy(), 1.0,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(w.sum(-1).numpy(), 1.0, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("path", ["dense", "onehot", "sort_mesh"])
+def test_pad_experts_get_no_gradient(path):
+    impl, ep, dp, shape = PATHS[path]
+    cfg, ffn, x = _moe_case(8, impl, shape=shape)
+    x.requires_grad_(True)
+    ffn(x, ep_size=ep, dp=dp).square().sum().backward()
+    n = cfg.n_experts
+    assert bool((ffn.router.grad[:, n:] == 0).all())
+    assert float(ffn.router.grad[:, :n].abs().max()) > 0
+    for w in (ffn.w_gate, ffn.w_up, ffn.w_down):
+        assert bool((w.grad[n:] == 0).all())
+        assert float(w.grad[:n].abs().max()) > 0
+    assert float(x.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("impl", ["dense", "onehot"])
+def test_config_without_pads_is_unchanged_by_the_mask(impl):
+    """16 experts of 16 columns: the router runs exactly the unmasked
+    computation, bit for bit, and matches the unpatched reference."""
+    from repro.configs import get as jget
+
+    cfg, ffn, x = _moe_case(16, impl)
+    assert cfg.n_experts == cfg.n_experts_padded
+    logits = x.reshape(-1, cfg.d_model) @ ffn.router
+    assert tmoe.mask_pad_experts(logits, cfg.n_experts) is logits
+    with torch.no_grad():
+        got = ffn(x)
+        w, ids = tmd.route_topk(logits, cfg.top_k)
+        tokens = x.reshape(-1, cfg.d_model)
+        if impl == "onehot":
+            cap = tmd._round_up(tokens.shape[0] * cfg.top_k / cfg.n_experts
+                                * cfg.moe_capacity_factor, 8)
+            routed = tmd.onehot_dispatch_combine(
+                tokens, w, ids, num_experts=16, capacity=cap,
+                expert_fn=lambda xin: tmoe.expert_fn(ffn.experts(), xin))
+        else:
+            routed = tmd.sort_dispatch(
+                tokens, w, ids, ffn.experts(),
+                cfg=tmd.MoeDispatchConfig(16, cfg.top_k,
+                                          cfg.moe_capacity_factor),
+                expert_fn=tmoe.expert_fn)
+        want = routed.reshape(x.shape) + tlayers.swiglu(ffn.shared, x)
+    assert torch.equal(got, want)
+    jcfg = jget("qwen2-moe-a2.7b").reduced(dtype="float32",
+                                           dispatch_impl=impl, n_experts=16)
+    p = {k: jnp.asarray(v.detach().numpy())
+         for k, v in ffn.state_dict().items() if "." not in k}
+    p["shared"] = {k: jnp.asarray(v.detach().numpy())
+                   for k, v in ffn.shared.items()}
+    ref = jmoe.moe_ffn(p, jcfg, jnp.asarray(x.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-5)
 
 
