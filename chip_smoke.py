@@ -72,15 +72,28 @@ Run from the repo root on a machine with one H100. It
      and restarted from a checkpoint (the losses agree); the MoE training
      example (`train.moe_example`) and the serving driver
      (`serve.launch`);
- 15. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
+ 15. the other five families, each at its published widths:
+     `<family>.identity` (card against CPU in float32 from the same
+     weights, cut in depth: prefill logits, 8 greedy tokens, one train
+     step) and `<family>.serve` (full depth in bfloat16, 4 requests of
+     128-token prompts, 32 greedy tokens, through serve.engine.generate)
+     for vlm (llava-next-34b, behind 576 patch embeddings), mla
+     (minicpm3-4b), ssm (xlstm-125m), hybrid (hymba-1.5b, 1,100-token
+     prompts that wrap its 1,024-position ring) and encdec (whisper-base,
+     with frames), each with `<family>.split`, a profiler split of one
+     decode step; then `hybrid.train`, hymba-1.5b at full size, 8 AdamW
+     steps of bfloat16 over float32 masters with remat, and
+     `hybrid.train.split`, one more step traced;
+ 16. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
      line (each kernel's launches on the full run, and per phase) and,
      last, the `ok` line.
 
-Each of the phases 5-14 zeroes every kernel's launch count just before
+Each of the phases 5-15 zeroes every kernel's launch count just before
 its runs and reads it just after (a process fleet's children report
 theirs at each phase end), and fails if a kernel of its path never
 launched, or, where the path runs none of the four kernels (the
-group-by, the MoE dispatch, serving and training), if one did. Then (`<phase>.hold`) it holds each kernel bit-identical to
+group-by, the MoE dispatch, serving and training, the families), if one
+did. Then (`<phase>.hold`) it holds each kernel bit-identical to
 its plain version on the card at every shape the phase launched it at
 (the wrappers record their launch shapes; children report theirs too),
 on fresh random inputs.
@@ -147,8 +160,28 @@ LAUNCH_RESTART_RTOL = 1e-5  # restarted run's step losses vs the straight run
 LAUNCH_EXTRA = []  # more driver flags (a CPU rehearsal passes --reduced)
 MOE_EXAMPLE_ARGS = ["--steps", "100"]  # the example's batch 16 x seq 128
 SERVE_LAUNCH = dict(arch="tinyllama-1.1b", batch=4, prompt_len=32, max_new=16)
+# slice 7's families: the arch of each, and its identity phase (float32,
+# card against CPU): depth (None: the config's), requests x prompt
+# tokens to serve, train batch (sequences x text tokens)
+FAMILY_ARCHS = {"vlm": "llava-next-34b", "mla": "minicpm3-4b",
+                "ssm": "xlstm-125m", "hybrid": "hymba-1.5b",
+                "encdec": "whisper-base"}
+FAMILY_IDENTITY = {
+    # 1 layer with the full 576-patch prefix: 1.02 B parameters, 16.3 GB
+    # of train state on each side
+    "vlm": dict(layers=1, requests=2, prompt=16, train=(1, 32)),
+    "mla": dict(layers=2, requests=4, prompt=32, train=(2, 64)),
+    "ssm": dict(layers=None, requests=4, prompt=32, train=(2, 64)),
+    # layer 0 global, layer 1 SWA; 1,100 text tokens wrap the 1,024 ring
+    "hybrid": dict(layers=2, requests=2, prompt=1100, train=(1, 1100)),
+    "encdec": dict(layers=None, requests=4, prompt=32, train=(2, 64)),
+}
+FAMILY_SERVE_PROMPT = {"hybrid": 1100}  # else SERVE_FULL_PROMPT
+HYBRID_TRAIN_BATCH = (4, 1280)
+HYBRID_TRAIN_STEPS = 8  # one batch repeated
 DEVICE = "cuda"
 BUCKET = "cloudsort"
+SMI = ""  # nvidia-smi's name and power limit, set by run()
 
 
 def emit(**obj):
@@ -308,6 +341,20 @@ def host_split(fn, *args):
             "top_self_cpu_us": rows[:10],
             "cuda_runtime_calls": {e.key: e.count for e in avg
                                    if e.key.startswith("cuda")}}
+
+
+def emit_split(phase, fn, **extra):
+    """One fn() call's wall ms, its device µs by kernel and the card's
+    busy share of the wall time (device_split), and its host side
+    (host_split), as the `phase` line."""
+    split = device_split(fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    emit(phase=phase, step_ms=ms, device_busy_share=split["device_us"] / 1e3
+         / ms, **split, **host_split(fn), **extra)
 
 
 def ptxas_summary(logs):
@@ -1495,15 +1542,7 @@ def phase_serve_full(wrappers):
     def step():
         model.decode_step(params, cache, token, SERVE_FULL_PROMPT)
 
-    split = device_split(step)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    emit(phase="serve.split", step_ms=step_ms,
-         device_busy_share=split["device_us"] / 1e3 / step_ms, **split,
-         **host_split(step))
+    emit_split("serve.split", step)
     del cache
     launches = read_launches(wrappers)
     wall = stats["prefill_s"] + sum(stats["decode_s"])
@@ -1607,26 +1646,9 @@ def phase_train_identity(wrappers):
             metrics[device] = {k: float(v) for k, v in m.items()}
             secs[device] = time.perf_counter() - t0
     launches = read_launches(wrappers)
-    cpu_named = dict(states["cpu"]["params"].named_parameters())
-    param_diff, excess = 0.0, -1.0  # excess > 0: outside the bound
-    mu_rel, mu_excess = 0.0, -1.0
-    for name, p in states[DEVICE]["params"].named_parameters():
-        got, want = p.detach().cpu(), cpu_named[name].detach()
-        diff = (got - want).abs()
-        param_diff = max(param_diff, float(diff.max()))
-        excess = max(excess, float((diff - TRAIN_PARAM_ATOL
-                                    - TRAIN_PARAM_RTOL * want.abs()).max()))
-        # the first moments, 0.1 x the clipped gradients: rtol 1e-3, atol
-        # 1e-4 of the leaf's largest (tests/test_torch_models.py's bound)
-        got = states[DEVICE]["opt"]["mu"][name].cpu()
-        want = states["cpu"]["opt"]["mu"][name]
-        top = float(want.abs().max())
-        diff = (got - want).abs()
-        mu_rel = max(mu_rel, float(diff.max()) / max(top, 1e-30))
-        mu_excess = max(mu_excess, float(
-            (diff - 1e-4 * top - 1e-3 * want.abs()).max()))
-    n_params = sum(p.numel() for p in cpu_named.values())
-    del states, cpu_named, card_params, cpu_params
+    param_diff, excess, mu_rel, mu_excess = state_diffs(states)
+    n_params = sum(p.numel() for p in cpu_params.parameters())
+    del states, card_params, cpu_params
     torch.cuda.empty_cache()
     diffs = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k])
              for k in ("loss", "grad_norm")}
@@ -1652,6 +1674,33 @@ def phase_train_identity(wrappers):
                              f"{max(seen)} of {cfg.n_experts}")
     require_none_launched("train.identity", launches)
     return launches
+
+
+def state_diffs(states):
+    """The card's training state after a step against the CPU's: the
+    largest parameter difference and its excess over rtol
+    TRAIN_PARAM_RTOL / atol TRAIN_PARAM_ATOL (> 0: outside), the first
+    moments' (0.1 x the clipped gradients) largest difference relative to
+    each leaf's largest and its excess over rtol 1e-3 / atol 1e-4 of the
+    leaf's largest (tests/test_torch_models.py's bounds)."""
+    cpu_named = dict(states["cpu"]["params"].named_parameters())
+    param_diff, excess = 0.0, -1.0
+    mu_rel, mu_excess = 0.0, -1.0
+    for name, p in states[DEVICE]["params"].named_parameters():
+        got, want = p.detach().cpu(), cpu_named[name].detach()
+        # a NaN anywhere counts as an infinite difference
+        diff = (got - want).abs().nan_to_num(nan=float("inf"))
+        param_diff = max(param_diff, float(diff.max()))
+        excess = max(excess, float((diff - TRAIN_PARAM_ATOL
+                                    - TRAIN_PARAM_RTOL * want.abs()).max()))
+        got = states[DEVICE]["opt"]["mu"][name].cpu()
+        want = states["cpu"]["opt"]["mu"][name]
+        top = float(want.abs().max())
+        diff = (got - want).abs().nan_to_num(nan=float("inf"))
+        mu_rel = max(mu_rel, float(diff.max()) / max(top, 1e-30))
+        mu_excess = max(mu_excess, float(
+            (diff - 1e-4 * top - 1e-3 * want.abs()).max()))
+    return param_diff, excess, mu_rel, mu_excess
 
 
 def phase_train_full(wrappers):
@@ -1697,15 +1746,7 @@ def phase_train_full(wrappers):
     def one_step():
         step(state, batch)
 
-    split = device_split(one_step)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_step()
-    torch.cuda.synchronize()
-    split_ms = (time.perf_counter() - t0) * 1e3
-    emit(phase="train.split", step_ms=split_ms,
-         device_busy_share=split["device_us"] / 1e3 / split_ms, **split,
-         **host_split(one_step))
+    emit_split("train.split", one_step)
     del state, params, step
     torch.cuda.empty_cache()
     steady = step_s[1:]
@@ -1845,6 +1886,263 @@ def phase_serve_launch(wrappers, log):
     return launches
 
 
+def family_config(family, **over):
+    """The family's arch at its published widths, with `over`."""
+    from repro_torch.configs import get
+
+    return dataclasses.replace(get(FAMILY_ARCHS[family]), **over)
+
+
+def family_inputs(cfg, requests, length, seed, labels=False):
+    """`requests` prompts of `length` text tokens drawn with numpy, the
+    frontend stubs' inputs from a CPU generator, and with `labels` the
+    labels (a vlm's span its prefix and the text), on the CPU."""
+    from repro_torch.models import api as mapi
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (requests, length)))}
+    if labels:
+        prefix = cfg.vlm_prefix if cfg.family == "vlm" else 0
+        batch["labels"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (requests, prefix + length)))
+    batch.update(mapi.stub_inputs(cfg, requests, length,
+                                  torch.Generator().manual_seed(seed)))
+    return batch
+
+
+def phase_family_identity(family, wrappers):
+    """One family at its published widths, cut to FAMILY_IDENTITY's
+    depth, float32 with TF32 off, from the same weights (drawn on the
+    CPU, copied to the card) on the card and the CPU: prefill logits
+    within SERVE_TOL, SERVE_IDENTITY_NEW greedy tokens identical, and one
+    training step: loss within TRAIN_LOSS_TOL, grad norm within rtol
+    1e-4, parameters and first moments within state_diffs' bounds."""
+    from repro_torch.models import api as mapi
+    from repro_torch.serve.engine import ServeConfig, generate
+    from repro_torch.train.train_step import (TrainConfig, make_train_step,
+                                              train_state_of)
+
+    spec = FAMILY_IDENTITY[family]
+    over = dict(dtype="float32", remat=False)
+    if spec["layers"] is not None:
+        over["n_layers"] = spec["layers"]
+    cfg = family_config(family, **over)
+    model = mapi.build(cfg)
+    tcfg = TrainConfig()
+    serve = family_inputs(cfg, spec["requests"], spec["prompt"], SEED)
+    train = family_inputs(cfg, *spec["train"], SEED + 1, labels=True)
+    zero_launches(wrappers)
+    out, states = {}, {}
+    with full_float32():
+        cpu_params = model.init(torch.Generator().manual_seed(SEED),
+                                trainable=True)
+        card_params = mapi.model_class(cfg)(cfg, None, trainable=True)
+        card_params.load_state_dict(
+            {n: p.detach().to(DEVICE) for n, p in
+             cpu_params.state_dict().items()}, strict=True, assign=True)
+        for device, params in ((DEVICE, card_params), ("cpu", cpu_params)):
+            batch = {k: v.to(device) for k, v in serve.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(params, batch)
+            gen, _ = generate(model, params, batch,
+                              ServeConfig(max_new_tokens=SERVE_IDENTITY_NEW))
+            gen = gen.cpu()
+            serve_s = time.perf_counter() - t0
+            state = train_state_of(params, tcfg)
+            t0 = time.perf_counter()
+            states[device], m = make_train_step(model, tcfg)(
+                state, {k: v.to(device) for k, v in train.items()})
+            out[device] = dict(logits=logits.cpu(), tokens=gen,
+                               metrics={k: float(v) for k, v in m.items()},
+                               serve_s=serve_s,
+                               train_s=time.perf_counter() - t0)
+            del logits, batch, state
+    launches = read_launches(wrappers)
+    param_diff, excess, mu_rel, mu_excess = state_diffs(states)
+    n_params = sum(p.numel() for p in cpu_params.parameters())
+    del states, card_params, cpu_params
+    torch.cuda.empty_cache()
+    card, cpu = out[DEVICE], out["cpu"]
+    err = float((card["logits"] - cpu["logits"]).abs().max())
+    same = bool(torch.equal(card["tokens"], cpu["tokens"]))
+    finite = bool(torch.isfinite(card["logits"]).all())
+    diffs = {k: abs(card["metrics"][k] - cpu["metrics"][k])
+             for k in ("loss", "grad_norm")}
+    gn_rel = diffs["grad_norm"] / abs(cpu["metrics"]["grad_norm"])
+    emit(phase=f"{family}.identity", arch=cfg.name, layers=cfg.n_layers,
+         enc_layers=cfg.enc_layers or None, params=n_params, dtype=cfg.dtype,
+         requests=spec["requests"], prompt=spec["prompt"],
+         prefix=cfg.vlm_prefix or None, new_tokens=SERVE_IDENTITY_NEW,
+         train_batch=list(spec["train"]),
+         prefill_logits_max_abs_diff=err, tol=SERVE_TOL,
+         logits_abs_max=float(cpu["logits"].abs().max()),
+         tokens_identical=same, metrics={"card": card["metrics"],
+                                         "cpu": cpu["metrics"]},
+         loss_max_abs_diff=diffs["loss"], loss_tol=TRAIN_LOSS_TOL,
+         grad_norm_rel_diff=gn_rel, params_max_abs_diff=param_diff,
+         params_tol=[TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL],
+         params_worst_excess=excess, grads_max_rel_diff=mu_rel,
+         grads_worst_excess=mu_excess,
+         seconds={"card_serve": card["serve_s"], "cpu_serve": cpu["serve_s"],
+                  "card_step": card["train_s"], "cpu_step": cpu["train_s"]},
+         launches=launches, card=SMI)
+    if not (finite and err <= SERVE_TOL and same):
+        raise AssertionError(f"{family}.identity: finite {finite}, prefill "
+                             f"logits differ by {err} (tol {SERVE_TOL}), "
+                             f"tokens identical {same}")
+    # written so that a NaN anywhere fails
+    if not (diffs["loss"] <= TRAIN_LOSS_TOL and gn_rel <= 1e-4
+            and excess <= 0 and mu_excess <= 0
+            and np.isfinite(card["metrics"]["grad_norm"])):
+        raise AssertionError(f"{family}.identity: loss differs by "
+                             f"{diffs['loss']}, grad norm by {gn_rel} "
+                             f"(relative), parameters exceed their bound by "
+                             f"{excess}, gradients by {mu_excess}")
+    require_none_launched(f"{family}.identity", launches)
+    return launches
+
+
+def phase_family_serve(family, wrappers):
+    """One family at its published widths and depth in bfloat16 on the
+    card (llava-next-34b's 67.9 GB of weights fit once the earlier
+    phases have freed their memory): SERVE_REQUESTS greedy
+    requests of SERVE_FULL_PROMPT text tokens (hymba: 1,100, wrapping its
+    ring in the prefill and again in the decode; llava: behind its 576
+    patch embeddings; whisper: with its frames), SERVE_FULL_NEW new
+    tokens each, through serve/engine.generate: parameters, peak memory,
+    prefill ms, decode ms a step, tokens/s; then `<family>.split`, one
+    decode step traced."""
+    from repro_torch.models import api as mapi
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeConfig, generate
+
+    cfg = family_config(family)
+    prompt = FAMILY_SERVE_PROMPT.get(family, SERVE_FULL_PROMPT)
+    model = mapi.build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    count = sum(p.numel() for p in params.parameters())
+    want = transformer.expected_param_count(cfg) \
+        if cfg.family in transformer.FAMILIES else None
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    batch = {k: v.to(DEVICE) for k, v in family_inputs(
+        cfg, SERVE_REQUESTS, prompt, SEED).items()}
+    logits, _ = model.prefill(params, batch)
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    stats = {}
+    gen, steps = generate(model, params, batch,
+                          ServeConfig(max_new_tokens=SERVE_FULL_NEW),
+                          stats=stats)
+    gen = gen.cpu()
+    peak = torch.cuda.max_memory_allocated()
+    # one decode step again, traced: its device time by kernel against
+    # its wall time, its launches and syncs
+    logits, cache = model.prefill(params, batch, max_len=prompt + 1)
+    token = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    pos = prompt + (cfg.vlm_prefix if cfg.family == "vlm" else 0)
+    del logits
+    emit_split(f"{family}.split", lambda: model.decode_step(
+        params, cache, token, pos), card=SMI)
+    launches = read_launches(wrappers)
+    del params, batch, cache
+    torch.cuda.empty_cache()
+    wall = stats["prefill_s"] + sum(stats["decode_s"])
+    in_range = bool(((gen >= 0) & (gen < cfg.padded_vocab)).all())
+    emit(phase=f"{family}.serve", arch=cfg.name, layers=cfg.n_layers,
+         enc_layers=cfg.enc_layers or None,
+         dtype=cfg.dtype, requests=SERVE_REQUESTS, prompt=prompt,
+         prefix=cfg.vlm_prefix or None, new_tokens=steps, params=count,
+         params_expected=want, param_bytes=param_bytes,
+         max_memory_allocated=peak, init_s=init_s,
+         prefill_ms=stats["prefill_s"] * 1e3,
+         decode_ms_median=statistics.median(stats["decode_s"]) * 1e3,
+         decode_ms_min=min(stats["decode_s"]) * 1e3,
+         decode_ms_max=max(stats["decode_s"]) * 1e3,
+         tokens_per_s=SERVE_REQUESTS * steps / wall,
+         decode_tokens_per_s=SERVE_REQUESTS * steps / sum(stats["decode_s"]),
+         prefill_logits_finite=finite, tokens_in_range=in_range,
+         sample_tokens=gen[0, :8].tolist(), launches=launches, card=SMI)
+    if want is not None and count != want:
+        raise AssertionError(f"{family}.serve: {count} parameters, the "
+                             f"config gives {want}")
+    if peak <= param_bytes:
+        raise AssertionError(f"{family}.serve: peak memory {peak} B below "
+                             f"the parameters' {param_bytes} B")
+    if not (finite and in_range and gen.shape == (SERVE_REQUESTS,
+                                                  SERVE_FULL_NEW)):
+        raise AssertionError(f"{family}.serve: finite {finite}, tokens in "
+                             f"range {in_range}, shape {tuple(gen.shape)}")
+    require_none_launched(f"{family}.serve", launches)
+    return launches
+
+
+def phase_hybrid_train(wrappers):
+    """hymba-1.5b at its published widths and depth, bfloat16 compute
+    over float32 masters, remat on: HYBRID_TRAIN_STEPS AdamW steps on one
+    repeated batch of HYBRID_TRAIN_BATCH from the training pipeline; each
+    step's loss (finite, the last below the first), step ms, tokens/s,
+    peak memory; then `hybrid.train.split`, one more step traced."""
+    from repro_torch.models import api as mapi
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+
+    cfg = family_config("hybrid")
+    model = mapi.build(cfg)
+    tcfg = TrainConfig(opt=OptConfig(warmup_steps=2,
+                                     total_steps=HYBRID_TRAIN_STEPS),
+                       microbatches=cfg.train_microbatches)
+    batch = train_batch(cfg, HYBRID_TRAIN_BATCH, DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(wrappers)
+    state = init_train_state(
+        model, torch.Generator(device=DEVICE).manual_seed(SEED), tcfg)
+    count = sum(p.numel() for p in state["params"].parameters())
+    state_bytes = 16 * count  # float32 masters, grads, mu, nu
+    step = make_train_step(model, tcfg)
+    losses, step_s = [], []
+    for _ in range(HYBRID_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    emit_split("hybrid.train.split", lambda: step(state, batch), card=SMI)
+    launches = read_launches(wrappers)
+    del state, step
+    torch.cuda.empty_cache()
+    steady = step_s[1:]
+    tokens = HYBRID_TRAIN_BATCH[0] * HYBRID_TRAIN_BATCH[1]
+    emit(phase="hybrid.train", arch=cfg.name, layers=cfg.n_layers,
+         dtype=cfg.dtype, remat=cfg.remat, microbatches=tcfg.microbatches,
+         batch=list(HYBRID_TRAIN_BATCH), params=count,
+         state_bytes=state_bytes, max_memory_allocated=peak, losses=losses,
+         step_ms_median=statistics.median(steady) * 1e3,
+         step_ms_min=min(steady) * 1e3, step_ms_max=max(steady) * 1e3,
+         first_step_ms=step_s[0] * 1e3,
+         tokens_per_s=tokens / statistics.median(steady),
+         launches=launches, card=SMI)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"hybrid.train: losses {losses}")
+    if peak <= state_bytes:
+        raise AssertionError(f"hybrid.train: peak memory {peak} B below "
+                             f"the state's {state_bytes} B")
+    require_none_launched("hybrid.train", launches)
+    return launches
+
+
 def run_example(argv, plan, log):
     from repro_torch.examples import cloudsort_oocore
 
@@ -1880,6 +2178,8 @@ def run(log):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    global SMI
+    SMI = smi
     name = torch.cuda.get_device_name(0)
     emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=name,
@@ -2003,7 +2303,14 @@ def run(log):
     by_phase["train.moe_example"] = phase_train_moe_example(wrappers, log)
     by_phase["serve.launch"] = phase_serve_launch(wrappers, log)
 
-    # ---- 15. the kernels line, then the ok line ----
+    # ---- 15. the other families: vlm, mla, ssm, hybrid, encdec ----
+    for family in FAMILY_ARCHS:
+        by_phase[f"{family}.identity"] = phase_family_identity(family,
+                                                               wrappers)
+        by_phase[f"{family}.serve"] = phase_family_serve(family, wrappers)
+    by_phase["hybrid.train"] = phase_hybrid_train(wrappers)
+
+    # ---- 16. the kernels line, then the ok line ----
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_phase"] = {p: c[row["name"]]

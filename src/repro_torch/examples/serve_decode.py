@@ -5,9 +5,9 @@
 
 The twin of examples/serve_decode.py: the arch's reduced config in
 float32, weights drawn from a seeded `torch.Generator` on the device,
-prompts drawn with numpy from a seed, greedy decode through
-serve/engine.generate. The dense and moe families run; the others raise
-NotImplementedError (not ported yet). `main(argv)` returns the run's
+prompts drawn with numpy from a seed (a vlm's patch embeddings and an
+encdec's frames from a generator seeded 1), greedy decode through
+serve/engine.generate. Every arch runs. `main(argv)` returns the run's
 numbers.
 """
 import argparse
@@ -37,7 +37,9 @@ def main(argv=None) -> dict:
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     prompt = np.random.default_rng(1).integers(
         0, cfg.vocab, (args.batch, args.prompt_len))
-    batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+    batch = {"tokens": torch.from_numpy(prompt).to(dev),
+             **mapi.stub_inputs(cfg, args.batch, args.prompt_len,
+                                torch.Generator(device=dev).manual_seed(1))}
 
     t0 = time.perf_counter()
     out, steps = generate(model, params, batch,

@@ -3,12 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --batch 4 --prompt-len 32 --max-new 16 [--device cuda|cpu]
 
-Twin of src/repro/launch/serve.py for the ported families (dense, moe),
-with the same flags plus --device (default the card; raises without
-one): config -> model (weights and prompts drawn from torch.Generators
-seeded --seed and --seed + 1 on the device) -> batched prefill -> greedy
-or temperature decode with a KV cache (serve/engine.py), printing
-tokens/s. `--reduced` uses the smoke-scale config.
+Twin of src/repro/launch/serve.py for every arch, with the same flags
+plus --device (default the card; raises without one): config -> model
+(weights and prompts drawn from torch.Generators seeded --seed and
+--seed + 1 on the device; a vlm's patch embeddings and an encdec's
+frames from the second, as the reference draws them) -> batched prefill
+-> greedy or temperature decode with a KV cache (serve/engine.py),
+printing tokens/s. `--reduced` uses the smoke-scale config.
 """
 from __future__ import annotations
 
@@ -42,12 +43,13 @@ def main(argv=None):
     cfg = get(args.arch)
     if args.reduced:
         cfg = cfg.reduced(dtype="float32", remat=False)
-    model = mapi.build(cfg)  # raises for a family that is not ported
+    model = mapi.build(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     batch = {"tokens": torch.randint(0, cfg.vocab,
                                      (args.batch, args.prompt_len),
-                                     generator=gen, device=dev)}
+                                     generator=gen, device=dev),
+             **mapi.stub_inputs(cfg, args.batch, args.prompt_len, gen)}
 
     scfg = ServeConfig(max_new_tokens=args.max_new,
                        temperature=args.temperature)

@@ -9,7 +9,11 @@ Twin of src/repro/launch/train.py with the same flags, plus --device
 model -> train step -> exoshuffle-shuffled data pipeline -> checkpoints
 every --ckpt-every steps and at the end -> automatic restart from the
 latest checkpoint. The weights are drawn from a torch.Generator seeded
-0 on the device (the reference's PRNGKey(0) has no torch twin).
+0 on the device (the reference's PRNGKey(0) has no torch twin). Every
+arch trains: an encdec model's batches get frame embeddings (drawn from
+a generator seeded with the step, so a restarted run sees the same),
+which the reference's driver does not supply; a vlm trains on text
+alone, as the reference's does.
 """
 from __future__ import annotations
 
@@ -88,6 +92,10 @@ def main(argv=None):
     t0 = time.time()
     for step in range(start, args.steps):
         batch = data.batch_at(step)
+        if cfg.family == "encdec":
+            batch.update(mapi.stub_inputs(
+                cfg, args.batch, args.seq,
+                torch.Generator(device=dev).manual_seed(step)))
         state, metrics = step_fn(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])

@@ -1,19 +1,25 @@
 """Unified model API: build(cfg) -> ModelApi with train and serve entry points.
 
-Twin of src/repro/models/api.py for the `dense` and `moe` families; the
-other families raise NotImplementedError naming the ROADMAP item that
-ports them. The abstract shape specs and the benchmark shape cells serve
-the dry-run tooling, which is not ported yet, and have no twin here.
+Twin of src/repro/models/api.py for every family: dense, mla, moe and vlm
+(models/transformer.py), ssm (models/xlstm.py), hybrid (models/hymba.py)
+and encdec (models/whisper.py); an unknown family raises ValueError. The
+abstract shape specs and the benchmark shape cells serve the dry-run
+tooling, which is not ported yet, and have no twin here.
 
-`params` is a `transformer.Transformer` (an nn.Module holding the
-weights): `init(generator, trainable=...)` draws them on the generator's
-device, as float32 masters with gradients for training or in the
-config's dtype for serving; `params_from_reference(tree, device=...)`
-carries the JAX package's parameter pytree (numpy arrays, block leaves
-stacked (L, ...)) across, so that both packages compute from the same
-weights. `build(cfg, ep_size=, dp=)` stands in for the reference's
-`mesh=` / `dp_axes=`: the MoE dispatch runs the dp x ep_size mesh shards
-as a batch axis (models/moe.py).
+Family conventions, as the reference's: a `vlm` batch carries
+"patch_embeds" (B, vlm_prefix, d) before its text, and its logits and
+labels span vlm_prefix + S positions; an `encdec` batch carries "frames"
+(B, enc_len_for(cfg, S), d). `stub_inputs` draws both frontends.
+
+`params` is the family's nn.Module holding the weights: `init(generator,
+trainable=...)` draws them on the generator's device, as float32 masters
+with gradients for training or in the config's dtype for serving;
+`params_from_reference(tree, device=...)` carries the JAX package's
+parameter pytree (numpy arrays; models/naming.py maps the names) across,
+so that both packages compute from the same weights. `build(cfg,
+ep_size=, dp=)` stands in for the reference's `mesh=` / `dp_axes=`: the
+MoE dispatch runs the dp x ep_size mesh shards as a batch axis
+(models/moe.py).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import u32
-from repro_torch.models import transformer
+from repro_torch.models import hymba, naming, transformer, whisper, xlstm
 from repro_torch.models.config import ArchConfig
 
 
@@ -54,44 +60,110 @@ def ce_loss(logits, labels):
     return (lse - tgt_logit).mean()
 
 
+def model_class(cfg: ArchConfig):
+    """The nn.Module class of the config's family."""
+    if cfg.family in transformer.FAMILIES:
+        return transformer.Transformer
+    classes = {"ssm": xlstm.XLSTM, "hybrid": hymba.Hymba,
+               "encdec": whisper.Whisper}
+    if cfg.family not in classes:
+        raise ValueError(f"unknown family {cfg.family}")
+    return classes[cfg.family]
+
+
+def stub_inputs(cfg: ArchConfig, batch: int, seq: int,
+                generator: torch.Generator) -> dict:
+    """The frontend stubs' inputs for `batch` sequences of `seq` text
+    tokens, standard normal from `generator` on its device: "patch_embeds"
+    for a vlm, "frames" for an encdec; nothing for the other families."""
+    if cfg.family == "vlm":
+        shape = (batch, cfg.vlm_prefix, cfg.d_model)
+        name = "patch_embeds"
+    elif cfg.family == "encdec":
+        shape = (batch, whisper.enc_len_for(cfg, seq), cfg.d_model)
+        name = "frames"
+    else:
+        return {}
+    return {name: torch.randn(shape, generator=generator,
+                              device=generator.device)}
+
+
 def params_from_reference(cfg: ArchConfig, tree, *, device="cuda",
                           trainable: bool = False):
     """The port's model holding the reference's weights: `tree` is the
-    JAX parameter pytree as nested dicts of numpy arrays (e.g.
-    `jax.tree.map(np.asarray, params)`). Serving casts them to the
-    config's dtype; `trainable` keeps them as float32 masters with
-    gradients."""
+    JAX parameter pytree as nested dicts (and xlstm's list) of numpy
+    arrays (e.g. `jax.tree.map(np.asarray, params)`). Serving casts them
+    to the config's dtype; `trainable` keeps them as float32 masters
+    with gradients."""
     dev = u32.resolve_device(device)
     dt = transformer.param_dtype(cfg, trainable)
-    model = transformer.Transformer(cfg, None, trainable=trainable)
+    model = model_class(cfg)(cfg, None, trainable=trainable)
     state = {name: torch.from_numpy(np.array(arr)).to(device=dev, dtype=dt)
-             for name, arr in transformer.reference_state(cfg, tree).items()}
+             for name, arr in naming.reference_state(cfg, tree).items()}
     model.load_state_dict(state, strict=True, assign=True)
     return model.requires_grad_(trainable)
 
 
 def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1) -> ModelApi:
-    transformer.check_family(cfg)
+    cls = model_class(cfg)
+    fam = cfg.family
     mesh = dict(ep_size=ep_size, dp=dp)
 
     def init(generator: torch.Generator, *, trainable: bool = False):
-        return transformer.init_params(cfg, generator, trainable=trainable)
+        return cls(cfg, generator, trainable=trainable)
 
-    def forward(params, batch):
-        return params.forward(batch["tokens"], **mesh)
+    if cls is transformer.Transformer:
+        def forward(params, batch):
+            return params.forward(batch["tokens"], batch.get("patch_embeds"),
+                                  **mesh)
+
+        def prefill(params, batch, max_len=None):
+            # max_len counts text positions; the VLM patch prefix lives in
+            # the same cache, so reserve room for it too (the reference's)
+            if fam == "vlm" and max_len is not None:
+                max_len = max_len + cfg.vlm_prefix
+            return params.prefill(batch["tokens"], max_len,
+                                  batch.get("patch_embeds"), **mesh)
+
+        def decode_step(params, cache, token, pos):
+            return params.decode_step(cache, token, pos, **mesh)
+
+        def new_cache(batch, max_len, dev):
+            return transformer.init_cache(cfg, batch, max_len, dev)
+    elif fam == "encdec":
+        def forward(params, batch):
+            return params.forward(batch["tokens"], batch["frames"])
+
+        def prefill(params, batch, max_len=None):
+            return params.prefill(batch["tokens"], batch["frames"], max_len)
+
+        def decode_step(params, cache, token, pos):
+            return params.decode_step(cache, token, pos)
+
+        def new_cache(batch, max_len, dev):
+            # the decode cells' encoder context: seq // 4 frames
+            return whisper.init_cache(cfg, batch, max_len,
+                                      whisper.enc_len_for(cfg, max_len), dev)
+    else:  # ssm, hybrid
+        module = xlstm if fam == "ssm" else hymba
+
+        def forward(params, batch):
+            return params.forward(batch["tokens"])
+
+        def prefill(params, batch, max_len=None):
+            return params.prefill(batch["tokens"], max_len)
+
+        def decode_step(params, cache, token, pos):
+            return params.decode_step(cache, token, pos)
+
+        def new_cache(batch, max_len, dev):
+            return module.init_cache(cfg, batch, max_len, dev)
 
     def loss(params, batch):
         return ce_loss(forward(params, batch), batch["labels"])
 
-    def prefill(params, batch, max_len=None):
-        return params.prefill(batch["tokens"], max_len=max_len, **mesh)
-
-    def decode_step(params, cache, token, pos):
-        return params.decode_step(cache, token, pos, **mesh)
-
     def init_cache(batch: int, max_len: int, *, device="cuda"):
-        return transformer.init_cache(cfg, batch, max_len,
-                                      u32.resolve_device(device))
+        return new_cache(batch, max_len, u32.resolve_device(device))
 
     def from_reference(tree, *, device="cuda", trainable: bool = False):
         return params_from_reference(cfg, tree, device=device,

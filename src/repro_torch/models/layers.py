@@ -15,8 +15,30 @@ config's dtype (the cast at use then changes nothing). The reference's
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+class Params(nn.Module):
+    """A nested mapping of tensors held as a module: a parameter at each
+    leaf, a sub-module for each inner mapping, so that the state dict
+    names are the mapping's paths joined with dots (the reference's
+    pytree paths). `p[key]` reads a leaf or an inner mapping."""
+
+    def __init__(self, tree: Mapping, requires_grad: bool = False):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                self.add_module(key, Params(value, requires_grad))
+            else:
+                self.register_parameter(key, nn.Parameter(
+                    value, requires_grad=requires_grad))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
 
 
 def _device(generator: torch.Generator | None):

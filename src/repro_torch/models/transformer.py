@@ -1,9 +1,12 @@
-"""Decoder-only transformer: the dense (GQA) and MoE families.
+"""Decoder-only transformer: the dense (GQA), MLA, MoE and VLM families.
 
 Twin of src/repro/models/transformer.py for tinyllama-1.1b, granite-3-8b,
-mistral-nemo-12b (dense) and qwen2-moe-a2.7b, moonshot-v1-16b-a3b (MoE).
-The reference scans one traced block over stacked (L, ...) parameters;
-here the model holds an `nn.ModuleList` of `Block`s, one per layer.
+mistral-nemo-12b (dense), minicpm3-4b (MLA, models/mla.py),
+qwen2-moe-a2.7b, moonshot-v1-16b-a3b (MoE) and llava-next-34b (the dense
+backbone behind a patch-embedding stub: `prefix_embeds` (B, P, d) go
+before the text). The reference scans one traced block over stacked
+(L, ...) parameters; here the model holds an `nn.ModuleList` of
+`Block`s, one per layer.
 
 Two kinds of model, as `trainable` says:
   - serving (the default): parameters stored in the config's dtype,
@@ -14,33 +17,38 @@ Two kinds of model, as `trainable` says:
     (torch.utils.checkpoint, the twin of the reference's jax.checkpoint).
 
 Entry points (methods of `Transformer`):
-  forward(tokens)                  -> logits (B, S, vocab) float32, under
-                                      autograd (training)
-  prefill(tokens, max_len)         -> (last-position logits, cache)
-  decode_step(cache, token, pos)   -> (logits (B, 1, vocab), cache)
-and `init_params(cfg, generator)`; `init_cache` makes prefill's cache.
+  forward(tokens, prefix_embeds=None)  -> logits (B, P + S, vocab)
+                                          float32, under autograd
+                                          (training)
+  prefill(tokens, max_len, prefix_embeds=None)
+                                       -> (last-position logits, cache)
+  decode_step(cache, token, pos)       -> (logits (B, 1, vocab), cache)
+and `Transformer(cfg, generator)` draws the weights on the generator's
+device; `init_cache` makes prefill's cache.
 Each takes the mesh as a batch axis (`ep_size`, `dp`; see models/moe.py).
+Where the reference lays attention out for `attn_sharding="qfull"`, the
+query is one chunk here too (`q_chunk=0`); `cfg.causal_skip` visits only
+the live chunk pairs.
 
-The cache is {"k", "v"}: (L, B, max_len, KV, dh) in the compute dtype.
-`decode_step` writes position `pos` in place; a position outside the
-cache raises (the reference's dynamic_update_slice would clamp it onto
-the last entry).
+The cache is {"k", "v"}: (L, B, max_len, KV, dh) in the compute dtype;
+MLA caches the latent instead, {"c": (L, B, max_len, kv_lora_rank),
+"kr": (L, B, max_len, qk_rope_dim)}. `decode_step` writes position `pos`
+in place; a position outside the cache raises (the reference's
+dynamic_update_slice would clamp it onto the last entry).
 """
 from __future__ import annotations
-
-import re
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import layers
+from repro_torch.models import layers, mla
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.moe import MoeFFN
 
-#: Where the families this module does not run are queued.
-NOT_PORTED = "ROADMAP.md §1 (the vlm, mla, hybrid, ssm and encdec families)"
+#: The families this module builds.
+FAMILIES = ("dense", "mla", "moe", "vlm")
 
 
 def param_dtype(cfg: ArchConfig, trainable: bool) -> torch.dtype:
@@ -54,15 +62,19 @@ def _params(tensors: dict, requires_grad: bool) -> nn.ParameterDict:
                              for k, v in tensors.items()})
 
 
-def check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet — "
-            f"{NOT_PORTED}")
+def q_chunk_of(cfg: ArchConfig):
+    """The query chunking the reference uses: one chunk under
+    attn_sharding="qfull", else the key chunk."""
+    return 0 if cfg.attn_sharding == "qfull" else None
+
+
+def cache_names(cfg: ArchConfig) -> tuple[str, str]:
+    return ("c", "kr") if cfg.family == "mla" else ("k", "v")
 
 
 class Block(nn.Module):
-    """One pre-norm block: GQA attention, then a SwiGLU or MoE FFN."""
+    """One pre-norm block: GQA or MLA attention, then a SwiGLU or MoE
+    FFN."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator | None,
                  trainable: bool = False):
@@ -75,9 +87,13 @@ class Block(nn.Module):
 
         self.ln_attn = prm(layers.rmsnorm_init(cfg.d_model, generator, dt))
         self.ln_ffn = prm(layers.rmsnorm_init(cfg.d_model, generator, dt))
-        self.attn = prm(layers.gqa_proj_init(
-            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            generator, dt))
+        if cfg.family == "mla":
+            self.attn = layers.Params(mla.mla_init(cfg, generator, dt),
+                                      trainable)
+        else:
+            self.attn = prm(layers.gqa_proj_init(
+                cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                generator, dt))
         if cfg.is_moe:
             self.ffn = MoeFFN(cfg, generator, dtype=dt,
                               requires_grad=trainable)
@@ -102,34 +118,51 @@ class Block(nn.Module):
             return h + self.ffn(z, ep_size=ep_size, dp=dp)
         return h + layers.swiglu(self.ffn, z)
 
-    def forward(self, x, cos, sin, ep_size: int = 1, dp: int = 1):
-        """x (B, S, d) -> (out, k, v): the prompt's keys and values too."""
+    def forward(self, x, cos, sin, positions, ep_size: int = 1, dp: int = 1):
+        """x (B, S, d) -> (out, a, b): the prompt's cache entries too (k and
+        v, or MLA's latent c_kv and k_rope)."""
         cfg = self.cfg
+        if cfg.family == "mla":
+            hn = layers.rmsnorm(self.ln_attn, x, cfg.norm_eps)
+            out, (a, b) = mla.mla_attention(
+                self.attn, cfg, hn, positions, q_chunk=q_chunk_of(cfg),
+                causal_skip=cfg.causal_skip)
+            return self.mlp(x + out, ep_size, dp), a, b
         q, k, v = self.qkv(x, cos, sin)
         out = flash_attention(q, k, v, causal=True, window=cfg.window,
-                              chunk=cfg.attn_chunk)
+                              chunk=cfg.attn_chunk, q_chunk=q_chunk_of(cfg),
+                              causal_skip=cfg.causal_skip)
         h = x + layers.out_project(self.attn, out)
         return self.mlp(h, ep_size, dp), k, v
 
-    def decode(self, x, cos, sin, cache_k, cache_v, pos: int,
+    def decode(self, x, cos, sin, cache_a, cache_b, pos: int,
                ep_size: int = 1, dp: int = 1):
-        """x (B, 1, d); writes this step's k/v at `pos` of the layer's
-        cache (B, max_len, KV, dh) in place."""
+        """x (B, 1, d); writes this step's entries at `pos` of the layer's
+        cache in place: k/v (B, max_len, KV, dh), or MLA's latent."""
+        cfg = self.cfg
+        if cfg.family == "mla":
+            hn = layers.rmsnorm(self.ln_attn, x, cfg.norm_eps)
+            out = mla.mla_decode(self.attn, cfg, hn, cache_a, cache_b, pos)
+            return self.mlp(x + out, ep_size, dp)
         q, k, v = self.qkv(x, cos, sin)
-        cache_k[:, pos] = k[:, 0]
-        cache_v[:, pos] = v[:, 0]
-        out = decode_attention(q, cache_k, cache_v, cache_len=pos + 1,
-                               window=self.cfg.window)
+        cache_a[:, pos] = k[:, 0]
+        cache_b[:, pos] = v[:, 0]
+        out = decode_attention(q, cache_a, cache_b, cache_len=pos + 1,
+                               window=cfg.window)
         return self.mlp(x + layers.out_project(self.attn, out), ep_size, dp)
 
 
 class Transformer(nn.Module):
     """Embedding (tied readout), the blocks and the final norm."""
 
+    stacked = ("blocks",)  # the reference stacks the layers' leaves
+
     def __init__(self, cfg: ArchConfig, generator: torch.Generator | None,
                  *, trainable: bool = False):
         super().__init__()
-        check_family(cfg)
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                             f"transformer family {FAMILIES}")
         self.cfg = cfg
         self.trainable = trainable
         dt = param_dtype(cfg, trainable)
@@ -144,38 +177,51 @@ class Transformer(nn.Module):
         return layers.rope_frequencies(self.cfg.head_dim, self.cfg.rope_theta,
                                        positions)
 
-    def forward(self, tokens, *, ep_size: int = 1, dp: int = 1):
-        """tokens (B, S) int -> logits (B, S, padded vocab) float32, under
-        autograd when the parameters take gradients."""
+    def _inputs(self, tokens, prefix_embeds):
+        """The embedded text after any VLM prefix, with its positions and
+        their rotary factors."""
+        dt = self.cfg.compute_dtype
+        x = layers.embed(self.embed, tokens, dt)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(dt), x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)
+        return x, positions, *self._rope(positions)
+
+    def forward(self, tokens, prefix_embeds=None, *, ep_size: int = 1,
+                dp: int = 1):
+        """tokens (B, S) int; prefix_embeds (B, P, d) for the VLM stub ->
+        logits (B, P + S, padded vocab) float32, under autograd when the
+        parameters take gradients."""
         cfg = self.cfg
-        x = layers.embed(self.embed, tokens, cfg.compute_dtype)
-        cos, sin = self._rope(torch.arange(x.shape[1], device=x.device))
+        x, positions, cos, sin = self._inputs(tokens, prefix_embeds)
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:
-                x = checkpoint(lambda h, blk=blk: blk(h, cos, sin, ep_size,
-                                                      dp)[0],
-                               x, use_reentrant=False)
+                x = checkpoint(lambda h, blk=blk: blk(
+                    h, cos, sin, positions, ep_size, dp)[0],
+                    x, use_reentrant=False)
             else:
-                x = blk(x, cos, sin, ep_size, dp)[0]
+                x = blk(x, cos, sin, positions, ep_size, dp)[0]
         x = layers.rmsnorm(self.ln_f, x, cfg.norm_eps)
         return layers.unembed(self.embed, x)
 
     @torch.no_grad()
-    def prefill(self, tokens, max_len: int | None = None, *,
-                ep_size: int = 1, dp: int = 1):
-        """Run the prompt, building the cache. Returns (logits of the last
-        position (B, 1, vocab) float32, cache)."""
+    def prefill(self, tokens, max_len: int | None = None, prefix_embeds=None,
+                *, ep_size: int = 1, dp: int = 1):
+        """Run the prompt (after any VLM prefix), building the cache.
+        Returns (logits of the last position (B, 1, vocab) float32,
+        cache)."""
         cfg = self.cfg
-        x = layers.embed(self.embed, tokens, cfg.compute_dtype)
+        x, positions, cos, sin = self._inputs(tokens, prefix_embeds)
         b, s, _ = x.shape
-        max_len = max(max_len or s, s)  # the cache holds at least the prompt
+        # s counts any VLM prefix; the cache holds at least the prompt
+        max_len = max(max_len or s, s)
         cache = init_cache(cfg, b, max_len, x.device)
-        cos, sin = self._rope(torch.arange(s, device=x.device))
+        na, nb = cache_names(cfg)
         for i, blk in enumerate(self.blocks):
-            x, k, v = blk(x, cos, sin, ep_size, dp)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            x, a, bb = blk(x, cos, sin, positions, ep_size, dp)
+            cache[na][i, :, :s] = a
+            cache[nb][i, :, :s] = bb
         x = layers.rmsnorm(self.ln_f, x[:, -1:], cfg.norm_eps)
         return layers.unembed(self.embed, x), cache
 
@@ -187,14 +233,15 @@ class Transformer(nn.Module):
         (B, 1, vocab) float32, cache)."""
         cfg = self.cfg
         pos = int(pos)
-        max_len = cache["k"].shape[2]
+        na, nb = cache_names(cfg)
+        max_len = cache[na].shape[2]
         if not 0 <= pos < max_len:
             raise IndexError(f"decode position {pos} outside the cache of "
                              f"{max_len} positions")
         x = layers.embed(self.embed, token, cfg.compute_dtype)
         cos, sin = self._rope(torch.tensor([pos], device=x.device))
         for i, blk in enumerate(self.blocks):
-            x = blk.decode(x, cos, sin, cache["k"][i], cache["v"][i], pos,
+            x = blk.decode(x, cos, sin, cache[na][i], cache[nb][i], pos,
                            ep_size, dp)
         x = layers.rmsnorm(self.ln_f, x, cfg.norm_eps)
         return layers.unembed(self.embed, x), cache
@@ -204,74 +251,26 @@ def expected_param_count(cfg: ArchConfig) -> int:
     """The model's parameter count from the config's own arithmetic.
     `params_dense()` counts the vocab and the routed experts unpadded and
     leaves out the norms; the model also holds the padded vocab rows, the
-    pad experts (their weights and router columns) and 2L+1 norm scales."""
+    pad experts (their weights and router columns), 2L+1 norm scales and,
+    with MLA, the q and kv latent norms of each layer."""
     d, n = cfg.d_model, cfg.n_layers
     pad_vocab = (cfg.padded_vocab - cfg.vocab) * d
     pad_experts = n * (cfg.n_experts_padded - cfg.n_experts) * (
         3 * d * cfg.d_ff_expert + d)
-    return cfg.params_dense() + pad_vocab + pad_experts + (2 * n + 1) * d
-
-
-def init_params(cfg: ArchConfig, generator: torch.Generator, *,
-                trainable: bool = False) -> Transformer:
-    """A model with weights drawn from `generator`, on its device."""
-    return Transformer(cfg, generator, trainable=trainable)
+    latent_norms = n * (cfg.q_lora_rank + cfg.kv_lora_rank) \
+        if cfg.family == "mla" else 0
+    return (cfg.params_dense() + pad_vocab + pad_experts
+            + (2 * n + 1) * d + latent_norms)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device):
-    """Zero GQA cache: full K/V per layer."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Zero cache: full K/V per layer, or MLA's latent and rope key."""
+    lead = (cfg.n_layers, batch, max_len)
+    if cfg.family == "mla":
+        shapes = {"c": lead + (cfg.kv_lora_rank,),
+                  "kr": lead + (cfg.qk_rope_dim,)}
+    else:
+        shapes = {name: lead + (cfg.n_kv_heads, cfg.head_dim)
+                  for name in ("k", "v")}
     return {name: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
-            for name in ("k", "v")}
-
-
-_BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
-
-
-def reference_state(cfg: ArchConfig, tree: dict) -> dict:
-    """The reference's parameter pytree (nested dicts of arrays, every
-    block leaf stacked (L, ...)) as this model's state dict names:
-    blocks.<key> with leading axis L becomes blocks.<i>.<key>."""
-    flat = {}
-
-    def walk(prefix, node):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(f"{prefix}{k}.", v)
-        else:
-            flat[prefix[:-1]] = node
-
-    walk("", tree)
-    state = {}
-    for name, arr in flat.items():
-        if name.startswith("blocks."):
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: leading axis {arr.shape[0]}, "
-                                 f"expected {cfg.n_layers} layers")
-            rest = name[len("blocks."):]
-            for i in range(cfg.n_layers):
-                state[f"blocks.{i}.{rest}"] = arr[i]
-        else:
-            state[name] = arr
-    return state
-
-
-def layer_groups(names) -> dict[str, list[str]]:
-    """The inverse naming of `reference_state`: each reference leaf name
-    (dotted, block leaves without the layer index) -> the state dict names
-    it stacks, in layer order (one name for a leaf outside the blocks)."""
-    groups: dict[str, dict[int, str]] = {}
-    for name in names:
-        m = _BLOCK.match(name)
-        key, layer = (f"blocks.{m.group(2)}", int(m.group(1))) if m \
-            else (name, 0)
-        if layer in groups.setdefault(key, {}):
-            raise ValueError(f"{name}: two names for leaf {key}")
-        groups[key][layer] = name
-    out = {}
-    for key, by_layer in groups.items():
-        if sorted(by_layer) != list(range(len(by_layer))):
-            raise ValueError(f"{key}: layers {sorted(by_layer)} are not "
-                             f"0..{len(by_layer) - 1}")
-        out[key] = [by_layer[i] for i in range(len(by_layer))]
-    return out
+            for name, shape in shapes.items()}

@@ -13,9 +13,12 @@ mid-save never corrupts the restore point. A leaf's name is its path in
 the reference's pytree, joined with "__" (dict keys, list indices). The
 port's state holds a model (an nn.Module) and moments keyed by its
 parameter names; those map onto the reference's tree: a parameter name's
-dots are path steps, and the layers' parameters `blocks.<i>.<key>` are
-one leaf `blocks__<key>` stacked (L, ...), as the reference scans them
-(the inverse of `transformer.reference_state`). `load` checks each
+dots are path steps, and the layers' parameters `<stack>.<i>.<key>` of a
+stack the reference scans (the model's `.stacked`: `blocks`, or
+whisper's `enc_blocks` and `dec_blocks`) are one leaf `<stack>__<key>`
+stacked (L, ...) (the inverse of `naming.reference_state`); xlstm's
+layers, a list in the reference, stay one leaf `blocks__<i>__<key>`
+each. `load` checks each
 leaf's crc32 and puts it on the device it is asked for: a checkpoint
 written on one device restores onto another (launch/reshard.py).
 """
@@ -32,7 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import u32
-from repro_torch.models.transformer import layer_groups
+from repro_torch.models.naming import STACKED, layer_groups
 
 
 def _named(node) -> dict | None:
@@ -45,32 +48,51 @@ def _named(node) -> dict | None:
     return None
 
 
-def _groups(named: dict, path: tuple):
+def _stacking(node, default=STACKED):
+    """The stacked prefixes of the first model in a state tree (the
+    moments beside it are named after its parameters); `default` when
+    the tree holds no model."""
+    if isinstance(node, nn.Module):
+        return getattr(node, "stacked", STACKED)
+    children = node.values() if isinstance(node, Mapping) else \
+        node if isinstance(node, (list, tuple)) else ()
+    for child in children:
+        found = _stacking(child, None)
+        if found is not None:
+            return found
+    return default
+
+
+def _groups(named: dict, path: tuple, stacked):
     """(leaf name, stacked?, state names) of a flat dict of tensors."""
-    for key, names in layer_groups(named).items():
+    for key, names in layer_groups(named, stacked).items():
         yield ("__".join(path + tuple(key.split("."))), names[0] != key,
                names)
 
 
-def _leaves(node, path=()):
+def _leaves(node, stacked, path=()):
     """(leaf name, stacked?, [tensors]) of every leaf of a state tree."""
     named = _named(node)
     if named is not None:
-        for name, stacked, names in _groups(named, path):
-            yield name, stacked, [named[n] for n in names]
+        for name, is_stack, names in _groups(named, path, stacked):
+            yield name, is_stack, [named[n] for n in names]
     elif isinstance(node, Mapping):
         for k, v in node.items():
-            yield from _leaves(v, path + (str(k),))
+            yield from _leaves(v, stacked, path + (str(k),))
     elif isinstance(node, (list, tuple)):
         for i, v in enumerate(node):
-            yield from _leaves(v, path + (str(i),))
+            yield from _leaves(v, stacked, path + (str(i),))
     else:
         yield "__".join(path), False, [node]
 
 
+def _all_leaves(state):
+    return _leaves(state, _stacking(state))
+
+
 def leaf_names(state) -> list[str]:
     """The checkpoint leaf names of a state tree, in save order."""
-    return [name for name, _, _ in _leaves(state)]
+    return [name for name, _, _ in _all_leaves(state)]
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -87,9 +109,9 @@ def save(state, ckpt_dir: str, step: int):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for name, stacked, tensors in _leaves(state):
+    for name, is_stack, tensors in _all_leaves(state):
         arrs = [_to_numpy(t) for t in tensors]
-        arr = np.stack(arrs) if stacked else arrs[0]
+        arr = np.stack(arrs) if is_stack else arrs[0]
         del arrs
         np.save(os.path.join(tmp, name + ".npy"), arr)
         manifest["leaves"][name] = {
@@ -150,11 +172,13 @@ def load(target, ckpt_dir: str, step: int | None = None, *, device="cuda",
         return torch.from_numpy(np.asarray(arr, order="C")).to(
             device=dev, dtype=dtype)
 
+    stacked = _stacking(target)
+
     def fill_named(named, path):
         out = {}
-        for name, stacked, names in _groups(named, path):
+        for name, is_stack, names in _groups(named, path, stacked):
             arr = read(name)
-            parts = list(arr) if stacked else [arr]
+            parts = list(arr) if is_stack else [arr]
             if len(parts) != len(names):
                 raise ValueError(f"{name}: {len(parts)} layers in the "
                                  f"checkpoint, {len(names)} in the target")

@@ -14,13 +14,14 @@ batch axis: `compressed_pod_mean` takes each gradient stacked
 mappings name -> tensor. "Per tensor" means per leaf of the reference's
 pytree: the reference stacks the layers' parameters (L, ...), so the
 layers of one parameter, `blocks.<i>.<key>`, share one scale here
-(transformer.layer_groups).
+(naming.layer_groups over the model's `.stacked` prefixes); xlstm's
+layers are a list there, so each of its layers has its own scale.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import layer_groups
+from repro_torch.models.naming import STACKED, layer_groups
 
 
 def quantize_int8(x):
@@ -44,12 +45,12 @@ def _abs_max(tensors, dim=None):
                         for t in tensors]).amax(dim=0)
 
 
-def compressed_pod_mean(grads):
+def compressed_pod_mean(grads, stacked=STACKED):
     """Mean gradients across the pod axis with the int8 wire format:
     grads name -> (n_pod, ...) tensor, one slice a pod; returns name ->
     (...) mean. Each pod quantizes each leaf with its own scale."""
     out = {}
-    for names in layer_groups(grads).values():
+    for names in layer_groups(grads, stacked).values():
         xs = [grads[n].float() for n in names]
         n_pod = xs[0].shape[0]
         scales = torch.clamp(_abs_max(xs, dim=0), min=1e-12) / 127.0
@@ -61,12 +62,12 @@ def compressed_pod_mean(grads):
 
 
 @torch.no_grad()
-def ef_compress_grads(grads, residual):
+def ef_compress_grads(grads, residual, stacked=STACKED):
     """Error feedback: g' = Q(g + r); r' = (g + r) - g'. A local transform
     (the end-to-end numerics of the compressed reduce). Returns
     (compressed grads, new residual)."""
     out, new_res = {}, {}
-    for names in layer_groups(grads).values():
+    for names in layer_groups(grads, stacked).values():
         corrected = [grads[n].float() + residual[n] for n in names]
         scale = torch.clamp(_abs_max(corrected), min=1e-12) / 127.0
         for name, c in zip(names, corrected):

@@ -8,7 +8,7 @@ reference's `lax.scan` does: their gradients accumulate in the float32
 precision: float32 master parameters, compute in the config's dtype
 (cast in the model), float32 grads.
 
-The state is {"params": the model (a `transformer.Transformer` holding
+The state is {"params": the model (the family's nn.Module holding
 float32 masters with gradients), "opt": {"mu", "nu": name -> tensor,
 "step": int32 tensor}} and, with `pod_grad_compress`, "ef_residual". One
 card is one pod, so the step has no pod axis to average over: the int8
@@ -93,8 +93,8 @@ def make_train_step(model, tcfg: TrainConfig):
         loss, grads = grads_of(params, batch)
         new_state = dict(state)
         if tcfg.pod_grad_compress and "ef_residual" in state:
-            grads, residual = gc.ef_compress_grads(grads,
-                                                   state["ef_residual"])
+            grads, residual = gc.ef_compress_grads(
+                grads, state["ef_residual"], params.stacked)
             new_state["ef_residual"] = residual
         _, opt, info = adamw_update(dict(params.named_parameters()), grads,
                                     state["opt"], tcfg.opt)

@@ -33,7 +33,7 @@ from repro_torch.launch import reshard as treshard
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import api as tapi
-from repro_torch.models import transformer
+from repro_torch.models import naming
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import grad_compress as gc
 from repro_torch.train.optimizer import (OptConfig, adamw_update,
@@ -255,7 +255,7 @@ def test_elastic_reshard_onto_a_requested_device(tmp_path):
     assert step == 2 and int(state["opt"]["step"]) == 2
     cfg = tget("tinyllama-1.1b").reduced(dtype="float32", remat=False)
     files = os.path.join(d, "step_00000002")
-    want = transformer.reference_state(cfg, _nested(
+    want = naming.reference_state(cfg, _nested(
         {f[:-4]: np.load(os.path.join(files, f)) for f in os.listdir(files)
          if f.endswith(".npy")}, "params__"))
     for name, p in state["params"].named_parameters():
@@ -383,6 +383,94 @@ def _moe_reference_state():
                     "step": jnp.int32(5)}}
 
 
+#: slice 7's families: one reduced arch each (xlstm down to its sLSTM
+#: layer 5)
+FAMILY_ARCHS = {"llava-next-34b": {}, "minicpm3-4b": {},
+                "xlstm-125m": {"n_layers": 6}, "hymba-1.5b": {},
+                "whisper-base": {}}
+
+
+def _family_reference_state(arch):
+    """A reduced training state of the JAX package for `arch`: its
+    weights, moments drawn with numpy, step 3."""
+    cfg = jget(arch).reduced(dtype="float32", remat=False,
+                             **FAMILY_ARCHS[arch])
+    params = jax.jit(japi.build(cfg).init)(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(3)
+
+    def draw(p):
+        return jnp.asarray(rng.normal(size=p.shape).astype(np.float32))
+
+    return {"params": params,
+            "opt": {"mu": jax.tree.map(draw, params),
+                    "nu": jax.tree.map(draw, params),
+                    "step": jnp.int32(3)}}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_ARCHS))
+def test_family_checkpoints_cross_between_the_packages(arch, tmp_path):
+    """Each family's reference checkpoint (xlstm's list of layers as
+    `blocks__<i>__<key>`, whisper's two stacks, hymba's `meta`, MLA's
+    latent leaves) loads in the port with every value; the port writes it
+    back with the same manifest (names, shapes, crc32s) and the reference
+    loads that."""
+    jstate = _family_reference_state(arch)
+    d_ref, d_port = str(tmp_path / "ref"), str(tmp_path / "port")
+    jckpt.save(jstate, d_ref, 3)
+    cfg = tget(arch).reduced(dtype="float32", remat=False,
+                             **FAMILY_ARCHS[arch])
+    target = abstract_train_state(tapi.build(cfg), TrainConfig())
+    assert sorted(ckpt.leaf_names(target)) == sorted(
+        _manifest(d_ref, 3)["leaves"])
+    state, step = ckpt.load(target, d_ref, device="cpu")
+    assert step == 3 and int(state["opt"]["step"]) == 3
+    want = {key: naming.reference_state(cfg, jax.tree.map(np.asarray, tree))
+            for key, tree in (("params", jstate["params"]),
+                              ("mu", jstate["opt"]["mu"]),
+                              ("nu", jstate["opt"]["nu"]))}
+    for name, p in state["params"].named_parameters():
+        assert p.requires_grad and p.dtype == torch.float32
+        assert np.array_equal(p.detach().numpy(), want["params"][name]), name
+        for key in ("mu", "nu"):
+            assert np.array_equal(state["opt"][key][name].numpy(),
+                                  want[key][name])
+    ckpt.save(state, d_port, 3)
+    assert _manifest(d_port, 3) == _manifest(d_ref, 3)
+    back, jstep = jckpt.load(jax.eval_shape(lambda: jstate), d_port)
+    assert jstep == 3
+    for a, b in zip(jax.tree.leaves(jstate), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-base"])
+def test_grad_compression_scales_follow_the_reference_leaves(arch):
+    """ef_compress_grads with one int8 scale per reference leaf: xlstm's
+    layers each their own (a list in the reference), whisper's stacks
+    one per key; the same outputs and residuals as the reference's on
+    the same gradients, on the model's names."""
+    cfg = tget(arch).reduced(dtype="float32", remat=False,
+                             **FAMILY_ARCHS[arch])
+    jparams = _family_reference_state(arch)["params"]
+    rng = np.random.default_rng(9)
+    g = jax.tree.map(lambda p: (rng.normal(size=p.shape) * rng.choice(
+        [1e-3, 1.0])).astype(np.float32), jparams)
+    r = jax.tree.map(lambda p: (rng.normal(size=p.shape) * 1e-3).astype(
+        np.float32), jparams)
+    jout, jres = jgc.ef_compress_grads(jax.tree.map(jnp.asarray, g),
+                                       jax.tree.map(jnp.asarray, r))
+    model = tapi.build(cfg).init(None, trainable=True)
+    tg, tr = (
+        {n: _t(a) for n, a in naming.reference_state(cfg, tree).items()}
+        for tree in (g, r))
+    tout, tres = gc.ef_compress_grads(tg, tr, model.stacked)
+    for key, got, want in (("out", tout, jout), ("res", tres, jres)):
+        want = naming.reference_state(cfg, jax.tree.map(np.asarray, want))
+        assert sorted(got) == sorted(want)
+        for n in got:
+            np.testing.assert_allclose(got[n].numpy(), want[n], rtol=0,
+                                       atol=1e-7, err_msg=f"{key} {n}")
+
+
 def test_checkpoints_cross_between_the_packages(tmp_path):
     """Written by the reference, loaded by the port, written again by the
     port, loaded by the reference: the same leaves, names and crc32s in
@@ -394,7 +482,7 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
     target = abstract_train_state(tapi.build(cfg), TrainConfig())
     state, step = ckpt.load(target, d_ref, device="cpu")
     assert step == 5 and int(state["opt"]["step"]) == 5
-    want = {key: transformer.reference_state(
+    want = {key: naming.reference_state(
         cfg, jax.tree.map(np.asarray, tree)) for key, tree in
         (("params", jstate["params"]), ("mu", jstate["opt"]["mu"]),
          ("nu", jstate["opt"]["nu"]))}
@@ -433,7 +521,7 @@ def test_port_training_checkpoint_loads_in_the_reference(tmp_path):
         jax.random.PRNGKey(0))
     back, step = jckpt.load(abstract, d)
     assert step == 1 and int(back["opt"]["step"]) == 1
-    got = transformer.reference_state(cfg, jax.tree.map(np.asarray,
+    got = naming.reference_state(cfg, jax.tree.map(np.asarray,
                                                         back["params"]))
     for name, p in state["params"].named_parameters():
         assert np.array_equal(got[name], p.detach().numpy()), name
@@ -472,6 +560,23 @@ def test_serve_driver_runs_on_the_cpu(capsys):
     a, b = tserve.main(argv), tserve.main(argv)
     assert a["tokens"].shape == (2, 4) and a["steps"] == 4
     assert torch.equal(a["tokens"], b["tokens"])
+    assert "tok/s" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_ARCHS))
+def test_drivers_run_every_family_on_the_cpu(arch, capsys):
+    """launch/serve.py and launch/train.py on slice 7's families (reduced):
+    the same tokens twice from the same seeds, finite losses."""
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len",
+            "9", "--max-new", "3", "--device", "cpu"]
+    a, b = tserve.main(argv), tserve.main(argv)
+    assert a["tokens"].shape == (2, 3) and torch.equal(a["tokens"],
+                                                       b["tokens"])
+    out = tlaunch.main(["--arch", arch, "--reduced", "--steps", "2",
+                        "--batch", "2", "--seq", "12", "--log-every", "1",
+                        "--device", "cpu"])
+    assert sorted(out["losses"]) == [0, 1]
+    assert all(np.isfinite(v) for v in out["losses"].values())
     assert "tok/s" in capsys.readouterr().out
 
 
