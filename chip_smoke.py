@@ -84,7 +84,19 @@ Run from the repo root on a machine with one H100. It
      decode step; then `hybrid.train`, hymba-1.5b at full size, 8 AdamW
      steps of bfloat16 over float32 masters with remat, and
      `hybrid.train.split`, one more step traced;
- 16. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
+ 16. the dry run against the card: after each phase that reads
+     `max_memory_allocated` (serve.full, train.full, each
+     `<family>.serve`, hybrid.train), `dryrun.hold` runs the same window
+     (`serve_window`, `train_window`) again on "meta" tensors through
+     launch/dryrun.peak_bytes and holds the predicted peak, plus the
+     bytes already live at the phase's reset, within DRYRUN_TOL of the
+     measured one; `cost.flops`, the FLOPs of one train.full step, one
+     hybrid.train step and the serve.full prefill counted on meta by
+     launch/op_cost over their measured times (TFLOP/s and the share of
+     the dense bf16 peak); `cost.tco`, core/cost_model.gpu_cloudsort_tco
+     at the full run's map and reduce rates; `phase.seconds`, each
+     phase's wall seconds. None of this launches a kernel;
+ 17. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
      line (each kernel's launches on the full run, and per phase) and,
      last, the `ok` line.
 
@@ -179,6 +191,8 @@ FAMILY_IDENTITY = {
 FAMILY_SERVE_PROMPT = {"hybrid": 1100}  # else SERVE_FULL_PROMPT
 HYBRID_TRAIN_BATCH = (4, 1280)
 HYBRID_TRAIN_STEPS = 8  # one batch repeated
+DRYRUN_TOL = 0.10  # |predicted / measured - 1| of a phase's peak memory
+BF16_DENSE_PEAK = 989e12  # H100 SXM data sheet: dense bf16 tensor FLOP/s
 DEVICE = "cuda"
 BUCKET = "cloudsort"
 SMI = ""  # nvidia-smi's name and power limit, set by run()
@@ -355,6 +369,96 @@ def emit_split(phase, fn, **extra):
     ms = (time.perf_counter() - t0) * 1e3
     emit(phase=phase, step_ms=ms, device_busy_share=split["device_us"] / 1e3
          / ms, **split, **host_split(fn), **extra)
+
+
+def generator(device):
+    """The phases' seeded generator on `device`; on "meta" none (the
+    weights are drawn as shapes only)."""
+    if device == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(SEED)
+
+
+def serve_window(model, batch, device, stats=None):
+    """What a serve phase runs between resetting and reading the card's
+    peak memory: the weights drawn on `device`, the prompts moved there,
+    one prefill (the finiteness of its logits; None on "meta"), then
+    SERVE_FULL_NEW greedy tokens through serve/engine.generate. With
+    `stats`, the init's seconds and generate's. Returns (params, batch,
+    finite, tokens, steps)."""
+    from repro_torch.serve.engine import ServeConfig, generate
+
+    t0 = time.perf_counter()
+    params = model.init(generator(device))
+    if stats is not None:
+        torch.cuda.synchronize()
+        stats["init_s"] = time.perf_counter() - t0
+    batch = {k: v.to(device) for k, v in batch.items()}
+    logits, _ = model.prefill(params, batch)
+    finite = None if device == "meta" else bool(torch.isfinite(logits).all())
+    del logits
+    gen, steps = generate(model, params, batch,
+                          ServeConfig(max_new_tokens=SERVE_FULL_NEW),
+                          stats=stats)
+    return params, batch, finite, gen, steps
+
+
+def train_window(model, tcfg, batch, device, steps, step_s=None,
+                 losses=None):
+    """What a training phase runs between resetting and reading the
+    card's peak memory: the training state drawn on `device` (float32
+    masters, zero moments), then `steps` AdamW steps on `batch`, each
+    step's seconds and loss appended to `step_s` and `losses` on a card.
+    Returns (state, step)."""
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    state = init_train_state(model, generator(device), tcfg)
+    step = make_train_step(model, tcfg)
+    for _ in range(steps):
+        if device == "meta":
+            state, _ = step(state, batch)
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    return state, step
+
+
+def to_meta(batch):
+    return {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+
+
+def dryrun_hold(phase, measured, baseline, window):
+    """`dryrun.hold`: the dry run's peak of `window()`, the phase's
+    measured window run on "meta" (launch/dryrun.peak_bytes), plus
+    `baseline`, the bytes live on the card that the window does not
+    create, against the measured max_memory_allocated. Fails if they
+    differ by more than DRYRUN_TOL."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    window_bytes = dryrun.peak_bytes(window)
+    predicted = baseline + window_bytes
+    ratio = predicted / measured
+    emit(phase="dryrun.hold", of=phase, predicted_bytes=predicted,
+         measured_bytes=measured, ratio=ratio, baseline_bytes=baseline,
+         window_predicted_bytes=window_bytes,
+         window_measured_bytes=measured - baseline,
+         window_ratio=window_bytes / max(measured - baseline, 1),
+         tol=DRYRUN_TOL, meta_seconds=time.perf_counter() - t0, card=SMI)
+    if not abs(ratio - 1) <= DRYRUN_TOL:
+        raise AssertionError(f"dryrun.hold {phase}: predicted {predicted} "
+                             f"B, measured {measured} B (ratio {ratio})")
+
+
+def meta_flops(fn, *args):
+    """launch/op_cost's FLOPs of fn(*args) on "meta" tensors."""
+    from repro_torch.launch import op_cost
+
+    return op_cost.analyze(fn, *args)["flops"]
 
 
 def ptxas_summary(logs):
@@ -1499,39 +1603,31 @@ def phase_serve_identity(wrappers):
     require_none_launched("serve.identity", launches)
 
 
-def phase_serve_full(wrappers):
+def phase_serve_full(wrappers, costs):
     """qwen2-moe-a2.7b at full width and depth in bfloat16 on the card:
     the parameter count against the config's arithmetic, peak memory,
     prefill ms, decode ms a step and tokens/s of SERVE_REQUESTS greedy
     requests through serve/engine.generate."""
     from repro_torch.models import api as mapi
     from repro_torch.models import transformer
-    from repro_torch.serve.engine import ServeConfig, generate
 
     cfg = serve_config()
     model = mapi.build(cfg)
+    prompt = {"tokens": torch.from_numpy(prompts(cfg, SERVE_FULL_PROMPT))}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
     zero_launches(wrappers)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    stats = {}
+    params, batch, finite, gen, steps = serve_window(model, prompt, DEVICE,
+                                                     stats)
+    gen = gen.cpu()
+    peak = torch.cuda.max_memory_allocated()
+    init_s = stats["init_s"]
     count = sum(p.numel() for p in params.parameters())
     want = transformer.expected_param_count(cfg)
     param_bytes = sum(p.numel() * p.element_size()
                       for p in params.parameters())
-    batch = {"tokens": torch.from_numpy(
-        prompts(cfg, SERVE_FULL_PROMPT)).to(DEVICE)}
-    logits, _ = model.prefill(params, batch)
-    finite = bool(torch.isfinite(logits).all())
-    del logits
-    stats = {}
-    gen, steps = generate(model, params, batch,
-                          ServeConfig(max_new_tokens=SERVE_FULL_NEW),
-                          stats=stats)
-    gen = gen.cpu()
-    peak = torch.cuda.max_memory_allocated()
     # one decode step again, traced: its device time by kernel against
     # its wall time (how much of a step the card is busy)
     logits, cache = model.prefill(params, batch,
@@ -1572,6 +1668,12 @@ def phase_serve_full(wrappers):
         raise AssertionError(f"serve.full: finite {finite}, tokens in "
                              f"range {in_range}, shape {tuple(gen.shape)}")
     require_none_launched("serve.full", launches)
+    dryrun_hold("serve.full", peak, baseline,
+                lambda: serve_window(model, prompt, "meta"))
+    costs["serve.full.prefill"] = dict(
+        flops=meta_flops(model.prefill, model.abstract_params(),
+                         to_meta(prompt)),
+        seconds=stats["prefill_s"])
     return launches
 
 
@@ -1703,13 +1805,14 @@ def state_diffs(states):
     return param_diff, excess, mu_rel, mu_excess
 
 
-def phase_train_full(wrappers):
+def phase_train_full(wrappers, costs):
     """qwen2-moe-a2.7b at its published widths, TRAIN_FULL_LAYERS deep,
     bfloat16 compute over float32 masters, remat on, the sort dispatch
     (ep_size 1, capacity factor 1.25), the config's 4 microbatches:
     TRAIN_FULL_STEPS AdamW steps on one repeated batch; each step's loss
     (finite, the last below the first), step ms, tokens/s, peak memory,
     and a torch.profiler split of one more step."""
+    from repro_torch.launch import dryrun
     from repro_torch.models import api as mapi
     from repro_torch.models import transformer
     from repro_torch.train.optimizer import OptConfig
@@ -1724,23 +1827,16 @@ def phase_train_full(wrappers):
     batch = train_batch(cfg, TRAIN_FULL_BATCH, DEVICE)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated() - dryrun.live_bytes(batch)
     zero_launches(wrappers)
-    state = init_train_state(
-        model, torch.Generator(device=DEVICE).manual_seed(SEED), tcfg)
+    losses, step_s = [], []
+    state, step = train_window(model, tcfg, batch, DEVICE, TRAIN_FULL_STEPS,
+                               step_s, losses)
+    peak = torch.cuda.max_memory_allocated()
     params = state["params"]
     count = sum(p.numel() for p in params.parameters())
     want = transformer.expected_param_count(cfg)
     state_bytes = 16 * count  # float32 masters, grads, mu, nu
-    step = make_train_step(model, tcfg)
-    losses, step_s = [], []
-    for _ in range(TRAIN_FULL_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-    peak = torch.cuda.max_memory_allocated()
     launches = read_launches(wrappers)
 
     def one_step():
@@ -1771,6 +1867,13 @@ def phase_train_full(wrappers):
         raise AssertionError(f"train.full: peak memory {peak} B below the "
                              f"state's {state_bytes} B")
     require_none_launched("train.full", launches)
+    dryrun_hold("train.full", peak, baseline, lambda: train_window(
+        model, tcfg, to_meta(batch), "meta", TRAIN_FULL_STEPS))
+    meta_state = init_train_state(model, None, tcfg)
+    costs["train.full.step"] = dict(
+        flops=meta_flops(make_train_step(model, tcfg), meta_state,
+                         to_meta(batch)),
+        seconds=statistics.median(steady))
     return launches
 
 
@@ -2016,34 +2119,26 @@ def phase_family_serve(family, wrappers):
     decode step traced."""
     from repro_torch.models import api as mapi
     from repro_torch.models import transformer
-    from repro_torch.serve.engine import ServeConfig, generate
 
     cfg = family_config(family)
     prompt = FAMILY_SERVE_PROMPT.get(family, SERVE_FULL_PROMPT)
     model = mapi.build(cfg)
+    inputs = family_inputs(cfg, SERVE_REQUESTS, prompt, SEED)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
     zero_launches(wrappers)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    stats = {}
+    params, batch, finite, gen, steps = serve_window(model, inputs, DEVICE,
+                                                     stats)
+    gen = gen.cpu()
+    peak = torch.cuda.max_memory_allocated()
+    init_s = stats["init_s"]
     count = sum(p.numel() for p in params.parameters())
     want = transformer.expected_param_count(cfg) \
         if cfg.family in transformer.FAMILIES else None
     param_bytes = sum(p.numel() * p.element_size()
                       for p in params.parameters())
-    batch = {k: v.to(DEVICE) for k, v in family_inputs(
-        cfg, SERVE_REQUESTS, prompt, SEED).items()}
-    logits, _ = model.prefill(params, batch)
-    finite = bool(torch.isfinite(logits).all())
-    del logits
-    stats = {}
-    gen, steps = generate(model, params, batch,
-                          ServeConfig(max_new_tokens=SERVE_FULL_NEW),
-                          stats=stats)
-    gen = gen.cpu()
-    peak = torch.cuda.max_memory_allocated()
     # one decode step again, traced: its device time by kernel against
     # its wall time, its launches and syncs
     logits, cache = model.prefill(params, batch, max_len=prompt + 1)
@@ -2082,15 +2177,18 @@ def phase_family_serve(family, wrappers):
         raise AssertionError(f"{family}.serve: finite {finite}, tokens in "
                              f"range {in_range}, shape {tuple(gen.shape)}")
     require_none_launched(f"{family}.serve", launches)
+    dryrun_hold(f"{family}.serve", peak, baseline,
+                lambda: serve_window(model, inputs, "meta"))
     return launches
 
 
-def phase_hybrid_train(wrappers):
+def phase_hybrid_train(wrappers, costs):
     """hymba-1.5b at its published widths and depth, bfloat16 compute
     over float32 masters, remat on: HYBRID_TRAIN_STEPS AdamW steps on one
     repeated batch of HYBRID_TRAIN_BATCH from the training pipeline; each
     step's loss (finite, the last below the first), step ms, tokens/s,
     peak memory; then `hybrid.train.split`, one more step traced."""
+    from repro_torch.launch import dryrun
     from repro_torch.models import api as mapi
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import (TrainConfig, init_train_state,
@@ -2104,21 +2202,14 @@ def phase_hybrid_train(wrappers):
     batch = train_batch(cfg, HYBRID_TRAIN_BATCH, DEVICE)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated() - dryrun.live_bytes(batch)
     zero_launches(wrappers)
-    state = init_train_state(
-        model, torch.Generator(device=DEVICE).manual_seed(SEED), tcfg)
+    losses, step_s = [], []
+    state, step = train_window(model, tcfg, batch, DEVICE,
+                               HYBRID_TRAIN_STEPS, step_s, losses)
+    peak = torch.cuda.max_memory_allocated()
     count = sum(p.numel() for p in state["params"].parameters())
     state_bytes = 16 * count  # float32 masters, grads, mu, nu
-    step = make_train_step(model, tcfg)
-    losses, step_s = [], []
-    for _ in range(HYBRID_TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-    peak = torch.cuda.max_memory_allocated()
     emit_split("hybrid.train.split", lambda: step(state, batch), card=SMI)
     launches = read_launches(wrappers)
     del state, step
@@ -2140,7 +2231,48 @@ def phase_hybrid_train(wrappers):
         raise AssertionError(f"hybrid.train: peak memory {peak} B below "
                              f"the state's {state_bytes} B")
     require_none_launched("hybrid.train", launches)
+    dryrun_hold("hybrid.train", peak, baseline, lambda: train_window(
+        model, tcfg, to_meta(batch), "meta", HYBRID_TRAIN_STEPS))
+    costs["hybrid.train.step"] = dict(
+        flops=meta_flops(make_train_step(model, tcfg),
+                         init_train_state(model, None, tcfg), to_meta(batch)),
+        seconds=statistics.median(steady))
     return launches
+
+
+def phase_cost_tco(full_out):
+    """`cost.tco`: core/cost_model.gpu_cloudsort_tco of the paper's 100 TB
+    priced from the full run's measured map and reduce records/s a card
+    (and the GPU time model's other terms)."""
+    from repro_torch.core import cost_model
+
+    records = full_out["records"]
+    params = cost_model.GpuCostParams(
+        map_records_per_s=records / full_out["map_s"],
+        reduce_records_per_s=records / full_out["reduce_s"])
+    t = cost_model.gpu_sort_time_model(100e12, params)
+    tco = cost_model.gpu_cloudsort_tco(100e12, params)
+    emit(phase="cost.tco", data_bytes=100e12, num_gpus=params.num_gpus,
+         gpu_hourly=params.gpu_hourly,
+         map_records_per_s=params.map_records_per_s,
+         reduce_records_per_s=params.reduce_records_per_s, time_model=t,
+         breakdown=dict(tco.rows()),
+         paper_total=cost_model.cloudsort_tco().total, card=SMI)
+
+
+def emit_cost_flops(costs):
+    """`cost.flops`: launch/op_cost's FLOPs of a step counted on "meta",
+    over the step's measured seconds: achieved TFLOP/s and their share
+    of the card's dense bf16 peak (BF16_DENSE_PEAK, the H100 SXM data
+    sheet's)."""
+    rows = {}
+    for name, c in costs.items():
+        rate = c["flops"] / c["seconds"]
+        rows[name] = dict(flops=c["flops"], seconds=c["seconds"],
+                          tflops_per_s=rate / 1e12,
+                          share_of_bf16_dense_peak=rate / BF16_DENSE_PEAK)
+    emit(phase="cost.flops", peak_flops_per_s=BF16_DENSE_PEAK, steps=rows,
+         card=SMI)
 
 
 def run_example(argv, plan, log):
@@ -2185,6 +2317,7 @@ def run(log):
          python=sys.version.split()[0], device=name,
          capability=list(torch.cuda.get_device_capability(0)),
          device_count=torch.cuda.device_count(), nvidia_smi=smi,
+         total_memory=torch.cuda.get_device_properties(0).total_memory,
          u32_probe=probe_u32())
 
     # ---- 2. build ----
@@ -2208,11 +2341,20 @@ def run(log):
                 "merge_sorted_pairs": merge_sorted_pairs,
                 "merge_sorted_pairs_indexed": merge_sorted_pairs_indexed}
     full = full_plan()
+    seconds = {"env+build": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
 
     # ---- 3. kernels against their plain versions ----
-    rows = phase_kernels(full)
+    rows = timed("kernels", phase_kernels, full)
 
     # ---- 4. identity: card vs CPU at 2^20 records, both reduce merges ----
+    t_phase = time.perf_counter()
     small = small_plan(full)
     layouts = {}
     for device in (DEVICE, "cpu"):
@@ -2238,8 +2380,10 @@ def run(log):
                                  "the card's device-merge run")
     emit(phase="identity", records=IDENTITY_RECORDS, outputs=len(want),
          etags_identical=True)
+    seconds["identity"] = time.perf_counter() - t_phase
 
     # ---- 5. the full run: the main path, launches counted alone ----
+    t_phase = time.perf_counter()
     store = os.path.join(WORK_DIR, "store-full")
     shutil.rmtree(store, ignore_errors=True)
     records = WAVES * full.records_per_wave
@@ -2275,46 +2419,61 @@ def run(log):
     hold_shapes("full", wrappers)
     phase_window_split(full, window_records / windows)
     by_phase = {"full": launches}
+    seconds["full"] = time.perf_counter() - t_phase
+    phase_cost_tco(out)
 
     # ---- 6. the payload modes ----
-    phase_payload_identity()
-    by_phase["payload"] = phase_payload_full(wrappers, log)
+    timed("payload.identity", phase_payload_identity)
+    by_phase["payload"] = timed("payload", phase_payload_full, wrappers, log)
 
     # ---- 7.-9. the fleets: processes, the skew pass, functions ----
-    by_phase["fleet"] = phase_fleet(full, wrappers)
-    by_phase["recursive"] = phase_recursive(full, wrappers)
-    by_phase["cloud"] = phase_cloud(full, wrappers)
+    by_phase["fleet"] = timed("fleet", phase_fleet, full, wrappers)
+    by_phase["recursive"] = timed("recursive", phase_recursive, full,
+                                  wrappers)
+    by_phase["cloud"] = timed("cloud", phase_cloud, full, wrappers)
 
     # ---- 10.-12. the other users of the shuffle ----
-    by_phase["quickstart"] = phase_quickstart(wrappers, log)
-    by_phase["groupby"] = phase_groupby(wrappers, log)
-    phase_epoch_identity()
-    by_phase["epoch"] = phase_epoch_full(wrappers)
-    by_phase["moe"] = phase_moe_identity(wrappers)
+    by_phase["quickstart"] = timed("quickstart", phase_quickstart, wrappers,
+                                   log)
+    by_phase["groupby"] = timed("groupby", phase_groupby, wrappers, log)
+    timed("epoch.identity", phase_epoch_identity)
+    by_phase["epoch"] = timed("epoch", phase_epoch_full, wrappers)
+    by_phase["moe"] = timed("moe", phase_moe_identity, wrappers)
 
     # ---- 13. serving qwen2-moe-a2.7b ----
-    phase_serve_identity(wrappers)
-    by_phase["serve"] = phase_serve_full(wrappers)
+    costs = {}
+    timed("serve.identity", phase_serve_identity, wrappers)
+    by_phase["serve"] = timed("serve.full", phase_serve_full, wrappers,
+                              costs)
 
     # ---- 14. training qwen2-moe-a2.7b and tinyllama-1.1b, the drivers ----
-    by_phase["train.identity"] = phase_train_identity(wrappers)
-    by_phase["train.full"] = phase_train_full(wrappers)
-    by_phase["train.launch"] = phase_train_launch(wrappers, log)
-    by_phase["train.moe_example"] = phase_train_moe_example(wrappers, log)
-    by_phase["serve.launch"] = phase_serve_launch(wrappers, log)
+    by_phase["train.identity"] = timed("train.identity",
+                                       phase_train_identity, wrappers)
+    by_phase["train.full"] = timed("train.full", phase_train_full, wrappers,
+                                   costs)
+    by_phase["train.launch"] = timed("train.launch", phase_train_launch,
+                                     wrappers, log)
+    by_phase["train.moe_example"] = timed(
+        "train.moe_example", phase_train_moe_example, wrappers, log)
+    by_phase["serve.launch"] = timed("serve.launch", phase_serve_launch,
+                                     wrappers, log)
 
     # ---- 15. the other families: vlm, mla, ssm, hybrid, encdec ----
     for family in FAMILY_ARCHS:
-        by_phase[f"{family}.identity"] = phase_family_identity(family,
-                                                               wrappers)
-        by_phase[f"{family}.serve"] = phase_family_serve(family, wrappers)
-    by_phase["hybrid.train"] = phase_hybrid_train(wrappers)
+        by_phase[f"{family}.identity"] = timed(
+            f"{family}.identity", phase_family_identity, family, wrappers)
+        by_phase[f"{family}.serve"] = timed(
+            f"{family}.serve", phase_family_serve, family, wrappers)
+    by_phase["hybrid.train"] = timed("hybrid.train", phase_hybrid_train,
+                                     wrappers, costs)
+    emit_cost_flops(costs)
 
-    # ---- 16. the kernels line, then the ok line ----
+    # ---- 17. the kernels line, then the ok line ----
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_phase"] = {p: c[row["name"]]
                                     for p, c in by_phase.items()}
+    emit(phase="phase.seconds", seconds=seconds, card=SMI)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,9 +1,11 @@
-"""Total-cost-of-ownership model (paper §3.3.2, Table 2).
+"""Total-cost-of-ownership model (paper §3.3.2, Table 2) + H100 variant.
 
 Reproduces the paper's arithmetic exactly — compute $/hr x job hours, S3
-storage-hours for input/output, and per-request GET/PUT fees — and prices
-a run from its measured request counts. The GPU counterpart of the
-accelerator re-parameterization is a later slice of the port.
+storage-hours for input/output, and per-request GET/PUT fees — prices a
+run from its measured request counts, and provides an H100 GPU
+re-parameterization of the adapted system (the counterpart of the
+reference's accelerator re-parameterization), so that a run of the port
+can report a CloudSort TCO for its design.
 """
 from __future__ import annotations
 
@@ -455,3 +457,123 @@ def serverless_crossover_tb(
         else:
             lo_tb = mid
     return (lo_tb + hi_tb) / 2.0
+
+
+# ---------------------------------------------------------------------------
+# H100 re-parameterization (the port's counterpart of the accelerator model)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuCostParams:
+    """A fleet of NVIDIA H100 SXM cards, priced per GPU-hour.
+
+    gpu_hourly: AWS EC2's on-demand list price of a p5.48xlarge (8 x H100
+    80GB SXM), $98.32/hr in us-east-1 as listed at its launch (July
+    2023), divided by its 8 cards. num_gpus: 40 such instances, the
+    paper's 40 workers. hbm_gbps: 3,350 GB/s, the H100 SXM data sheet's
+    HBM3 rate. interconnect_gbps: 50 GB/s a card, a p5.48xlarge's 3,200
+    Gb/s of EFA network over its 8 cards: the shuffle crosses instances,
+    so this, not NVLink's 450 GB/s a direction inside one, bounds it.
+    map_records_per_s and reduce_records_per_s: one card's measured
+    rates, by default those of chip_smoke.py's full run (2^26 100-byte
+    records, map 26.03 s, reduce 29.75 s) on an NVIDIA H100 80GB HBM3 at
+    a 700.00 W power limit (PERF.md §5).
+    """
+
+    gpu_hourly: float = 98.32 / 8
+    num_gpus: int = 320
+    hbm_gbps: float = 3350.0
+    interconnect_gbps: float = 50.0
+    map_records_per_s: float = 2 ** 26 / 26.03
+    reduce_records_per_s: float = 2 ** 26 / 29.75
+    # Object-store legs unchanged from the paper's S3 model.
+    s3: Ec2CostParams = Ec2CostParams()
+
+    def __post_init__(self):
+        for knob in ("gpu_hourly", "hbm_gbps", "interconnect_gbps",
+                     "map_records_per_s", "reduce_records_per_s"):
+            value = getattr(self, knob)
+            _require(value > 0, knob, value, "must be positive")
+        _require(isinstance(self.num_gpus, int) and self.num_gpus >= 1,
+                 "num_gpus", self.num_gpus, "must be a positive int")
+
+
+def gpu_sort_time_model(
+    data_bytes: float,
+    p: GpuCostParams = GpuCostParams(),
+    *,
+    payload_mode: str = "through",
+    num_rounds: int = 8,
+) -> dict:
+    """Job-time estimate for the exoshuffle on a fleet of H100s.
+
+    The roofline terms are the reference's accelerator model's, with the
+    interconnect in place of its links. Per-card data share D =
+    data_bytes / num_gpus:
+      network: the shuffle's all-to-all moves ~D bytes a card over the
+               interconnect; "late" mode adds the header shuffle and the
+               late payload fetch.
+      memory : sort + merge passes over the data in HBM — log2(cards) +
+               log2(rounds) merge rounds x 2 (read + write) x bytes in
+               flight ("late" mode merges only the 8-byte headers).
+    The larger of the two (rounds pipeline them) plus the store's in and
+    out legs at the interconnect rate is `t_total_s`.
+
+    `t_measured_s` is the same per-card share of 100-byte records at the
+    measured map and reduce rates. `job_hours` takes the larger of the
+    two: the roofline is a floor the port does not reach (its map and
+    reduce are bound by host work, PERF.md §5), and a job is billed for
+    the hours it runs.
+    """
+    import math
+
+    _require(data_bytes > 0, "data_bytes", data_bytes, "must be positive")
+    _require(payload_mode in ("through", "late"), "payload_mode",
+             payload_mode, "must be 'through' or 'late'")
+    _require(num_rounds >= 1, "num_rounds", num_rounds, "must be >= 1")
+    d = data_bytes / p.num_gpus
+    hdr_frac = 8.0 / 100.0  # header bytes per 100-byte record
+    if payload_mode == "through":
+        wire = d
+        merge_bytes = d
+    else:
+        wire = d * hdr_frac + d  # header shuffle + late payload fetch
+        merge_bytes = d * hdr_frac
+    merge_rounds = math.log2(p.num_gpus) + math.log2(max(num_rounds, 2))
+    t_net = wire / (p.interconnect_gbps * 1e9)
+    t_mem = merge_bytes * 2 * merge_rounds / (p.hbm_gbps * 1e9)
+    t_stage1 = max(t_net, t_mem)
+    io_time = d / (p.interconnect_gbps * 1e9)  # store in + out legs
+    total = t_stage1 + io_time
+    records = d / 100.0
+    measured = (records / p.map_records_per_s
+                + records / p.reduce_records_per_s)
+    return {
+        "t_network_s": t_net,
+        "t_memory_s": t_mem,
+        "t_total_s": total,
+        "t_measured_s": measured,
+        "job_hours": max(total, measured) / 3600,
+    }
+
+
+def gpu_cloudsort_tco(
+    data_bytes: float = 100e12,
+    p: GpuCostParams = GpuCostParams(),
+    *,
+    payload_mode: str = "through",
+) -> CostBreakdown:
+    """The CloudSort TCO on an H100 fleet: the cards' hours from
+    gpu_sort_time_model, and the paper's S3 storage and request legs."""
+    t = gpu_sort_time_model(data_bytes, p, payload_mode=payload_mode)
+    job_hours = t["job_hours"]
+    s3_hr = p.s3.s3_hourly_per_100tb() * (data_bytes / 100e12)
+    profile = JobProfile()
+    return CostBreakdown(
+        compute=p.gpu_hourly * p.num_gpus * job_hours,
+        storage_input=s3_hr * job_hours,
+        storage_output=s3_hr * job_hours * 0.35,  # reduce-phase fraction
+        access_get=p.s3.get_per_1000 * profile.get_requests / 1000,
+        access_put=p.s3.put_per_1000 * profile.put_requests / 1000,
+    )

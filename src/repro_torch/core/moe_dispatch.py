@@ -182,14 +182,19 @@ def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
     ecap = max(_round_up(tk / e_local * cfg.capacity_factor, 8), 8)
     keep = (rank < ecap) & (ge < e)  # drop overflow + sentinels
 
-    # Scatter the kept arrivals into (S, E_local, ecap, d). The reference
+    # Scatter the arrivals into (S, E_local, ecap + 1, d). The reference
     # gives dropped pairs the out-of-range rank ecap and lets mode="drop"
-    # discard them; torch raises on such an index, so only kept rows are
-    # written (their (expert, rank) slots are distinct).
-    exp_in = torch.zeros((s, e_local, ecap, d), dtype=x.dtype, device=dev)
+    # discard them; here rank ecap is a real dump row that every dropped
+    # pair lands on and that is sliced off before the experts run. Kept
+    # pairs have distinct (expert, rank) slots below it. The index has a
+    # fixed shape, so nothing waits for the card (a boolean mask would
+    # sync on its count) and the dispatch runs on "meta" tensors.
+    exp_in = torch.zeros((s, e_local, ecap + 1, d), dtype=x.dtype,
+                         device=dev)
     shard = torch.arange(s, device=dev)[:, None].expand(s, m)
     arrived = rx.gather(1, gperm[..., None].expand(-1, -1, d))
-    exp_in[shard[keep], local_eid[keep], rank[keep]] = arrived[keep]
+    exp_in[shard, local_eid, torch.where(keep, rank, ecap)] = arrived
+    exp_in = exp_in[:, :, :ecap]
 
     # --- reduce: one batched expert computation over all E experts ---------
     grid = exp_in.reshape(dp, ep, e_local, ecap, d).permute(1, 2, 0, 3, 4)

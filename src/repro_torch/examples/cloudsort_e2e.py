@@ -9,10 +9,10 @@ with its checksum, the exoshuffle sort with whole-record payload
 movement (core/exoshuffle.distributed_sort_payload: W = 8 workers as a
 batch axis, the sort, partition and merge kernels on the card, their
 plain versions on the CPU), each worker's R1 reducer partitions, the
-valsort ordering + checksum gates, and the Table-2 cost model of the
-paper's cluster. The reference's second cost line, the modeled TPU pod
-(`tpu_cloudsort_tco`), has no GPU counterpart yet: the port's cost model
-leaves the accelerator re-parameterization to a later slice.
+valsort ordering + checksum gates, and two cost lines: the Table-2 cost
+model of the paper's cluster, and in place of the reference's modeled
+accelerator pod, a modeled H100 fleet (core/cost_model.gpu_cloudsort_tco)
+priced at this run's measured records/s a card.
 
 `main(argv)` returns the run's numbers.
 """
@@ -22,7 +22,8 @@ import time
 import torch
 
 from repro_torch.configs.cloudsort import SMOKE
-from repro_torch.core.cost_model import cloudsort_tco
+from repro_torch.core.cost_model import (GpuCostParams, cloudsort_tco,
+                                         gpu_cloudsort_tco)
 from repro_torch.core.exoshuffle import (PAYLOAD_MODES, ShuffleConfig,
                                          distributed_sort_payload,
                                          reduce_partitions)
@@ -84,9 +85,19 @@ def main(argv=None) -> dict:
     # --- cost model (paper §3.3.2, Table 2) ---
     paper = cloudsort_tco()
     print(f"[cost] paper 100TB TCO  = ${paper.total:.4f} (Table 2: $96.6728)")
+    # the in-memory sort is the map and the reduce in one call: each leg
+    # gets twice the measured rate, so that their times add up to it
+    rate = args.records / sort_s
+    fleet = GpuCostParams(map_records_per_s=2 * rate,
+                          reduce_records_per_s=2 * rate)
+    gpu = gpu_cloudsort_tco(p=fleet, payload_mode=args.payload_mode)
+    print(f"[cost] {fleet.num_gpus} x H100 100TB TCO (modeled, "
+          f"{args.payload_mode}, at this run's {rate:,.0f} rec/s on "
+          f"{args.device}) = ${gpu.total:.2f}")
     return {"records": args.records, "payload_mode": args.payload_mode,
-            "sort_s": sort_s, "records_per_s": args.records / sort_s,
-            "valsort_ok": rep.ok, "checksum": rep.output_checksum}
+            "sort_s": sort_s, "records_per_s": rate,
+            "valsort_ok": rep.ok, "checksum": rep.output_checksum,
+            "gpu_tco": gpu.total}
 
 
 if __name__ == "__main__":

@@ -1,10 +1,19 @@
-"""Unified model API: build(cfg) -> ModelApi with train and serve entry points.
+"""Unified model API: build(cfg) -> ModelApi with train and serve entry
+points, and "meta" tensor input specs for every assigned benchmark shape.
 
 Twin of src/repro/models/api.py for every family: dense, mla, moe and vlm
 (models/transformer.py), ssm (models/xlstm.py), hybrid (models/hymba.py)
-and encdec (models/whisper.py); an unknown family raises ValueError. The
-abstract shape specs and the benchmark shape cells serve the dry-run
-tooling, which is not ported yet, and have no twin here.
+and encdec (models/whisper.py); an unknown family raises ValueError.
+
+Shape cells (the reference's; its batches are pod-wide, so
+launch/dryrun.py also searches the largest batch that fits one card):
+  train_4k    : seq 4096,   global_batch 256  -> train step
+  prefill_32k : seq 32768,  global_batch 32   -> prefill
+  decode_32k  : seq 32768,  global_batch 128  -> decode_step w/ 32k cache
+  long_500k   : seq 524288, global_batch 1    -> decode_step (ssm/hybrid only)
+`input_specs`, `abstract_params` and `abstract_cache` give the cells'
+inputs, weights and caches as tensors on "meta" (shapes and dtypes, no
+storage), the twin of the reference's ShapeDtypeStructs.
 
 Family conventions, as the reference's: a `vlm` batch carries
 "patch_embeds" (B, vlm_prefix, d) before its text, and its logits and
@@ -33,6 +42,13 @@ from repro_torch.kernels import u32
 from repro_torch.models import hymba, naming, transformer, whisper, xlstm
 from repro_torch.models.config import ArchConfig
 
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
 
 @dataclasses.dataclass
 class ModelApi:
@@ -44,6 +60,46 @@ class ModelApi:
     decode_step: Callable[..., Any]  # (params, cache, token, pos) -> (logits, cache)
     init_cache: Callable[..., Any]  # (batch, max_len, device=) -> cache
     params_from_reference: Callable[..., Any]  # (tree, device=, trainable=) -> params
+
+    def abstract_params(self):
+        """The serving weights (the config's dtype) on "meta"."""
+        return self.init(None)
+
+    def abstract_cache(self, batch: int, max_len: int):
+        return self.init_cache(batch, max_len, device="meta")
+
+    def input_specs(self, shape_name: str, *, batch: int | None = None):
+        """"meta" stand-ins for one benchmark cell's inputs (no storage),
+        at the cell's batch or at `batch`. Train and prefill: int32
+        tokens (and labels), a vlm's float32 patch embeddings (its labels
+        span the prefix and the text), an encdec's float32 frames. Decode:
+        the cache of the cell's length, one int32 token a sequence, and
+        `pos`, a Python int (the decode steps take it with int())."""
+        cfg = self.cfg
+        spec = SHAPES[shape_name]
+        b = spec["batch"] if batch is None else batch
+        s = spec["seq"]
+        i32 = torch.int32
+
+        def sd(shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if spec["kind"] == "decode":
+            return {"cache": self.abstract_cache(b, s),
+                    "token": sd((b, 1), i32), "pos": s - 1}
+        train = spec["kind"] == "train"
+        if cfg.family == "vlm":
+            specs = {"patch_embeds": sd((b, cfg.vlm_prefix, cfg.d_model)),
+                     "tokens": sd((b, s - cfg.vlm_prefix), i32)}
+        elif cfg.family == "encdec":
+            specs = {"frames": sd((b, whisper.enc_len_for(cfg, s),
+                                   cfg.d_model)),
+                     "tokens": sd((b, s), i32)}
+        else:
+            specs = {"tokens": sd((b, s), i32)}
+        if train:
+            specs["labels"] = sd((b, s), i32)
+        return specs
 
 
 def ce_loss(logits, labels):
@@ -163,7 +219,9 @@ def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1) -> ModelApi:
         return ce_loss(forward(params, batch), batch["labels"])
 
     def init_cache(batch: int, max_len: int, *, device="cuda"):
-        return new_cache(batch, max_len, u32.resolve_device(device))
+        dev = torch.device("meta") if str(device) == "meta" \
+            else u32.resolve_device(device)
+        return new_cache(batch, max_len, dev)
 
     def from_reference(tree, *, device="cuda", trainable: bool = False):
         return params_from_reference(cfg, tree, device=device,
@@ -173,3 +231,11 @@ def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1) -> ModelApi:
                     prefill=prefill, decode_step=decode_step,
                     init_cache=init_cache,
                     params_from_reference=from_reference)
+
+
+def applicable_shapes(cfg: ArchConfig):
+    """The shape cells this arch runs (long_500k: ssm and hybrid only)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long_context:
+        names.append("long_500k")
+    return names

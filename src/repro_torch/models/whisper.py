@@ -89,6 +89,14 @@ def _cross_kv(p, cfg, enc_out):
             (enc_out @ p["wv"].to(dt)).reshape(shape))
 
 
+def _cross_q(p, cfg, hx):
+    """The cross-attention queries of the decoder states (their keys and
+    values come from the encoder: `_cross_kv`)."""
+    b, s, _ = hx.shape
+    return (hx @ p["wq"].to(hx.dtype)).reshape(b, s, cfg.n_heads,
+                                               cfg.head_dim)
+
+
 def _dec_block(p, cfg, h, cos, sin, enc_out):
     """One decoder block over the text. Returns (out, (k, v), (xk, xv))."""
     hn = layers.rmsnorm(p["ln1"], h, cfg.norm_eps)
@@ -96,8 +104,7 @@ def _dec_block(p, cfg, h, cos, sin, enc_out):
     a = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     h = h + layers.out_project(p["self_attn"], a)
     hx = layers.rmsnorm(p["ln_x"], h, cfg.norm_eps)
-    qx, _, _ = layers.qkv_project(p["cross_attn"], hx, cfg.n_heads,
-                                  cfg.n_kv_heads, cfg.head_dim)
+    qx = _cross_q(p["cross_attn"], cfg, hx)
     xk, xv = _cross_kv(p["cross_attn"], cfg, enc_out)
     ax = flash_attention(qx, xk, xv, causal=False, chunk=cfg.attn_chunk)
     h = h + layers.out_project(p["cross_attn"], ax)
@@ -209,8 +216,7 @@ class Whisper(nn.Module):
             a = decode_attention(q, ck, cv, cache_len=pos + 1)
             x = x + layers.out_project(p["self_attn"], a)
             hx = layers.rmsnorm(p["ln_x"], x, cfg.norm_eps)
-            qx, _, _ = layers.qkv_project(p["cross_attn"], hx, cfg.n_heads,
-                                          cfg.n_kv_heads, cfg.head_dim)
+            qx = _cross_q(p["cross_attn"], cfg, hx)
             xk = cache["xk"][i]
             ax = decode_attention(qx, xk, cache["xv"][i],
                                   cache_len=xk.shape[1])

@@ -401,3 +401,133 @@ def test_sort_dispatch_rejects_uneven_shards():
     with pytest.raises(ValueError, match="divide evenly"):
         tmd.sort_dispatch(x, w, ids, {}, cfg=tmd.MoeDispatchConfig(8, 2),
                           expert_fn=tmoe.expert_fn, ep_size=4)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-shape scatter against the boolean mask it replaced
+# ---------------------------------------------------------------------------
+
+
+def _mask_sort_dispatch(x, weights, ids, expert_params, *, cfg, expert_fn,
+                        ep_size=1, dp=1):
+    """core/moe_dispatch.sort_dispatch as it was before its scatter got a
+    fixed shape: the kept arrivals written through a boolean mask (which
+    syncs with the card on its count, and which "meta" tensors cannot
+    run)."""
+    ep = ep_size
+    s = dp * ep
+    n_tok, d = x.shape
+    k = ids.shape[-1]
+    e = cfg.num_experts
+    e_local = e // ep
+    t = n_tok // s
+    tk = t * k
+    dev = x.device
+    xs = x.reshape(s, t, d)
+    flat_w = weights.reshape(s, tk)
+    se, sslot = torch.sort(ids.reshape(s, tk).long(), dim=-1, stable=True)
+    bounds = torch.arange(1, ep, device=dev) * e_local
+    starts = torch.searchsorted(se, bounds.expand(s, ep - 1).contiguous(),
+                                side="left")
+    zero = torch.zeros((s, 1), dtype=torch.int64, device=dev)
+    starts = torch.cat([zero, starts], dim=-1)
+    ends = torch.cat([starts[:, 1:], zero + tk], dim=-1)
+    counts = ends - starts
+    cap = tmd._round_up(tk / ep * cfg.capacity_factor, 8)
+    c = torch.arange(cap, device=dev)
+    src = (starts[..., None] + c).clamp(0, tk - 1).reshape(s, ep * cap)
+    valid = (c < counts[..., None]).reshape(s, ep * cap)
+    send_e = torch.where(valid, se.gather(1, src), e)
+    slot_clip = torch.where(valid, sslot.gather(1, src), tk - 1)
+    send_tok = slot_clip // k
+    send_x = torch.where(
+        valid[..., None],
+        xs.gather(1, send_tok[..., None].expand(-1, -1, d)), 0)
+    send_w = torch.where(valid, flat_w.gather(1, slot_clip), 0.0)
+    recv_e = tmd._all_to_all(send_e.reshape(s, ep, cap), dp, ep)
+    recv_x = tmd._all_to_all(send_x.reshape(s, ep, cap, d), dp, ep)
+    m = ep * cap
+    ge, gperm = torch.sort(recv_e.reshape(s, m), dim=-1, stable=True)
+    rx = recv_x.reshape(s, m, d)
+    first = (torch.arange(s, device=dev) % ep) * e_local
+    local_bounds = first[:, None] + torch.arange(e_local, device=dev)
+    estarts = torch.searchsorted(ge, local_bounds, side="left")
+    local_eid = (ge - first[:, None]).clamp(0, e_local - 1)
+    rank = torch.arange(m, device=dev) - estarts.gather(1, local_eid)
+    ecap = max(tmd._round_up(tk / e_local * cfg.capacity_factor, 8), 8)
+    keep = (rank < ecap) & (ge < e)
+    exp_in = torch.zeros((s, e_local, ecap, d), dtype=x.dtype, device=dev)
+    shard = torch.arange(s, device=dev)[:, None].expand(s, m)
+    arrived = rx.gather(1, gperm[..., None].expand(-1, -1, d))
+    exp_in[shard[keep], local_eid[keep], rank[keep]] = arrived[keep]
+    grid = exp_in.reshape(dp, ep, e_local, ecap, d).permute(1, 2, 0, 3, 4)
+    exp_out = expert_fn(expert_params, grid.reshape(e, dp * ecap, d))
+    d_out = exp_out.shape[-1]
+    exp_out = (exp_out.reshape(ep, e_local, dp, ecap, d_out)
+               .permute(2, 0, 1, 3, 4).reshape(s, e_local * ecap, d_out))
+    sel = local_eid * ecap + torch.where(keep, rank, 0)
+    y_sorted = torch.where(
+        keep[..., None],
+        exp_out.gather(1, sel[..., None].expand(-1, -1, d_out)), 0)
+    y_arrival = torch.empty_like(y_sorted).scatter_(
+        1, gperm[..., None].expand(-1, -1, d_out), y_sorted)
+    y_back = tmd._all_to_all(y_arrival.reshape(s, ep, cap, d_out), dp, ep)
+    y_flat = y_back.reshape(s, m, d_out)
+    w_flat = send_w[..., None].to(y_flat.dtype)
+    tok = (torch.arange(s, device=dev)[:, None] * t + send_tok).reshape(-1)
+    out = torch.zeros((n_tok, d_out), dtype=y_flat.dtype, device=dev)
+    return out.index_add_(0, tok, (y_flat * w_flat).reshape(-1, d_out))
+
+
+def _dispatch_with_grads(fn, inp, mesh, e, k, cf):
+    """fn's output on `inp` and the gradients of its weighted sum with
+    respect to the tokens, the router logits and the expert banks."""
+    dp, ep = mesh
+    x = torch.from_numpy(inp["x"]).requires_grad_(True)
+    logits = torch.from_numpy(inp["logits"]).requires_grad_(True)
+    prm = {n: torch.from_numpy(inp[n]).requires_grad_(True)
+           for n in ("w_gate", "w_up", "w_down")}
+    w, ids = tmd.route_topk(logits, k)
+    out = fn(x, w, ids, prm, cfg=tmd.MoeDispatchConfig(e, k, cf),
+             expert_fn=tmoe.expert_fn, ep_size=ep, dp=dp)
+    probe = torch.from_numpy(np.random.default_rng(9).normal(
+        size=tuple(out.shape)).astype(np.float32))
+    (out * probe).sum().backward()
+    return [out.detach(), x.grad, logits.grad] + [prm[n].grad for n in prm]
+
+
+# (dp, ep), capacity factor: the first of each mesh drops pairs
+SCATTER_CASES = [((1, 1), 0.5), ((1, 1), 8.0), ((2, 4), 1.0), ((2, 4), 4.0),
+                 ((1, 8), 0.75), ((1, 8), 8.0)]
+
+
+@pytest.mark.parametrize("mesh,cf", SCATTER_CASES)
+def test_fixed_shape_scatter_equals_the_boolean_mask(mesh, cf):
+    """Outputs and gradients bit-identical to the boolean-mask version,
+    where pairs are dropped over capacity and where none are."""
+    e, k, d, f, t = 16, 2, 32, 64, 256
+    inp = _inputs(e, k, d, f, t, seed=11)
+    got = _dispatch_with_grads(tmd.sort_dispatch, inp, mesh, e, k, cf)
+    want = _dispatch_with_grads(_mask_sort_dispatch, inp, mesh, e, k, cf)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    roomy = _dispatch_with_grads(tmd.sort_dispatch, inp, mesh, e, k, 64.0)
+    drops = not torch.equal(got[0], roomy[0])
+    assert drops == (cf < 2), (mesh, cf)
+
+
+@pytest.mark.parametrize("mesh", [(1, 1), (2, 4)])
+def test_sort_dispatch_runs_on_meta_tensors(mesh):
+    """The scatter has a fixed shape, so the dispatch runs on "meta"
+    tensors (the dry run's) and nothing in it waits on a count."""
+    dp, ep = mesh
+    e, k, d, f, t = 16, 2, 32, 64, 256
+    x = torch.empty((t, d), device="meta")
+    w, ids = tmd.route_topk(torch.empty((t, e), device="meta"), k)
+    prm = {"w_gate": torch.empty((e, d, f), device="meta"),
+           "w_up": torch.empty((e, d, f), device="meta"),
+           "w_down": torch.empty((e, f, d), device="meta")}
+    out = tmd.sort_dispatch(x, w, ids, prm,
+                            cfg=tmd.MoeDispatchConfig(e, k, 1.0),
+                            expert_fn=tmoe.expert_fn, ep_size=ep, dp=dp)
+    assert out.device.type == "meta" and out.shape == (t, d)
