@@ -46,23 +46,34 @@ Run from the repo root on a machine with one H100. It
   9. `cloud`: a FunctionWorker fleet over FakeS3Backend on the card at
      2^20 records with invocation kills: etags identical to a thread
      fleet's;
- 10. `quickstart`: the quickstart twin on the card (32k records, 8
+ 10. the rank mesh (launch/mesh.py): `mesh.nccl1`, the out-of-core sort
+     on a RankMesh of one NCCL rank (W = 8, R1 = 4, device merge, 2^24
+     records in 4 waves), and `mesh.gloo`, 4 gloo rank processes on the
+     one card (the same plan at 2^22 records), each output
+     etag-identical to the mesh=None run and valsort clean; with
+     `mesh.gloo.payload`, distributed_sort_payload over the 4 ranks in
+     both modes at 2^20 records, bit-identical to one process. Each
+     prints its ranks, backend, map and reduce seconds and (`.exchange`)
+     each rank's all_to_all bytes and ms per round (gloo's go through
+     host memory and are labelled so); `mesh.hold` holds every kernel at
+     every shape a rank launched;
+ 11. `quickstart`: the quickstart twin on the card (32k records, 8
      workers, 4 rounds), valsort clean; `groupby`: the group-by example
      (host numpy on a faulty tiered store), its validation clean;
- 11. `epoch.identity`: device_epoch_shuffle of 2^20 ids over 8 workers on
+ 12. `epoch.identity`: device_epoch_shuffle of 2^20 ids over 8 workers on
      the card and the CPU, bit-identical; `epoch.full`: 2^24 ids, epochs
      3 and 4 on the card, true permutations that differ;
- 12. `moe.identity`: the MoE sort dispatch at qwen2-moe-a2.7b's expert
+ 13. `moe.identity`: the MoE sort dispatch at qwen2-moe-a2.7b's expert
      widths (E = 64, K = 4, d = 2048, d_ff = 1408, T = 512) in float32
      with TF32 off, at ep_size 1 and 4 on the card and the CPU, against
      the onehot baseline on the card;
- 13. `serve.identity`: qwen2-moe-a2.7b at full width, 2 layers, float32,
+ 14. `serve.identity`: qwen2-moe-a2.7b at full width, 2 layers, float32,
      card against CPU (prefill logits, greedy tokens); `serve.full`: the
      same model at full width and depth in bfloat16 on the card, 4
      requests of 128-token prompts, 32 greedy tokens each, through
      repro_torch.serve.engine.generate: parameter count, peak memory,
      prefill ms, decode ms a step, tokens/s;
- 14. training: `train.identity`, one step of qwen2-moe-a2.7b at full
+ 15. training: `train.identity`, one step of qwen2-moe-a2.7b at full
      width, 1 layer, float32, card against CPU (loss, parameters after
      the step, no pad expert routed); `train.full`, the same model 4
      layers deep in bfloat16 over float32 masters with remat and 4
@@ -72,7 +83,7 @@ Run from the repo root on a machine with one H100. It
      and restarted from a checkpoint (the losses agree); the MoE training
      example (`train.moe_example`) and the serving driver
      (`serve.launch`);
- 15. the other five families, each at its published widths:
+ 16. the other five families, each at its published widths:
      `<family>.identity` (card against CPU in float32 from the same
      weights, cut in depth: prefill logits, 8 greedy tokens, one train
      step) and `<family>.serve` (full depth in bfloat16, 4 requests of
@@ -84,7 +95,7 @@ Run from the repo root on a machine with one H100. It
      decode step; then `hybrid.train`, hymba-1.5b at full size, 8 AdamW
      steps of bfloat16 over float32 masters with remat, and
      `hybrid.train.split`, one more step traced;
- 16. the dry run against the card: after each phase that reads
+ 17. the dry run against the card: after each phase that reads
      `max_memory_allocated` (serve.full, train.full, each
      `<family>.serve`, hybrid.train), `dryrun.hold` runs the same window
      (`serve_window`, `train_window`) again on "meta" tensors through
@@ -96,11 +107,11 @@ Run from the repo root on a machine with one H100. It
      the dense bf16 peak); `cost.tco`, core/cost_model.gpu_cloudsort_tco
      at the full run's map and reduce rates; `phase.seconds`, each
      phase's wall seconds. None of this launches a kernel;
- 17. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
+ 18. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
      line (each kernel's launches on the full run, and per phase) and,
      last, the `ok` line.
 
-Each of the phases 5-15 zeroes every kernel's launch count just before
+Each of the phases 5-16 zeroes every kernel's launch count just before
 its runs and reads it just after (a process fleet's children report
 theirs at each phase end), and fails if a kernel of its path never
 launched, or, where the path runs none of the four kernels (the
@@ -146,6 +157,10 @@ PAYLOAD_WORDS = 23  # 100-byte records
 PAYLOAD_TIMED_CALLS = 5  # back-to-back payload calls of each mode
 FLEET_WORKERS = 4
 FLEET_KILL_AFTER = 3  # the killed child dies at its 4th task pop
+MESH_NCCL_RECORDS = 1 << 24  # mesh.nccl1: 4 waves of 2^22 records
+MESH_GLOO_RANKS = 4
+MESH_GLOO_RECORDS = 1 << 22  # mesh.gloo: 4 waves of 2^20 records
+MESH_WAVES = 4  # the example asserts >= 4x out of core
 EPOCH_FULL_IDS = 1 << 24  # sample ids of the full epoch shuffle
 EPOCHS = (3, 4)
 MOE_SHAPE = dict(experts=64, top_k=4, d=2048, d_ff=1408, tokens=512)
@@ -1335,6 +1350,188 @@ def phase_cloud(full, wrappers):
     return launches
 
 
+def mesh_plan(full, records):
+    """The full plan (W = 8, R1 = 4, device merge) at `records` in
+    MESH_WAVES waves, input objects of half a wave: at G = 4 each object
+    straddles two ranks, so the ranks read them by ranged GETs."""
+    wave = records // MESH_WAVES
+    return dataclasses.replace(full, records_per_wave=wave,
+                               input_records_per_partition=wave // 2)
+
+
+def emit_exchanges(phase, ranks, backend, per_rank, plan):
+    """Each rank's all_to_all log, per round of the map (keys, vals and
+    counts) and per wave (the payload fetch's requests and rows): bytes
+    handed to all_to_all_single by the rank (its own share included) and
+    ms between CUDA events on the rank's stream around the collective,
+    each round's (the first round's includes NCCL's setup of the
+    exchange) and their median."""
+    rounds = MESH_WAVES * plan.num_rounds
+    rows = []
+    for log in per_rank:
+        shuffle = [x for x in log if x["what"] in ("keys", "vals", "counts")]
+        fetch = [x for x in log if x["what"] in ("requests", "rows")]
+        round_ms = [sum(x["ms"] for x in shuffle[3 * i:3 * i + 3])
+                    for i in range(rounds)]
+        wave_ms = [sum(x["ms"] for x in fetch[2 * i:2 * i + 2])
+                   for i in range(MESH_WAVES)]
+        rows.append({
+            "calls": len(log),
+            "bytes_per_round": sum(x["bytes"] for x in shuffle) / rounds,
+            "a2a_ms_per_round": round_ms,
+            "a2a_ms_median": statistics.median(round_ms),
+            "fetch_bytes_per_wave": sum(x["bytes"] for x in fetch)
+            / MESH_WAVES,
+            "fetch_ms_per_wave": wave_ms,
+            "fetch_ms_median": statistics.median(wave_ms),
+            "clock": sorted({x["clock"] for x in log})})
+    emit(phase=f"{phase}.exchange", ranks=ranks, backend=backend,
+         off_rank_share=(ranks - 1) / ranks, per_rank=rows,
+         what=("one card; gloo stages every all_to_all through host memory: "
+               "not an NVLink time" if backend == "gloo" else
+               "NCCL, world of 1: the all_to_all is a copy on the card, no "
+               "link is crossed"), card=SMI)
+
+
+@contextlib.contextmanager
+def stdout_to(log):
+    """This process's stdout, and that of the processes it starts, into
+    `log` (at the file descriptor, which spawned ranks inherit)."""
+    sys.stdout.flush()
+    log.flush()
+    saved = os.dup(1)
+    os.dup2(log.fileno(), 1)
+    try:
+        with contextlib.redirect_stdout(log):
+            yield
+    finally:
+        sys.stdout.flush()
+        log.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def phase_mesh_nccl1(full, wrappers, log):
+    """The out-of-core path on a RankMesh of one NCCL rank (W = 8, R1 = 4,
+    device merge, MESH_NCCL_RECORDS in 4 waves): every all_to_all and the
+    overflow reduce go through NCCL. Output etags identical to the
+    mesh=None run of the same plan, valsort clean. Returns the launches
+    and the shapes launched at."""
+    from repro_torch.launch.mesh import init_rank_mesh
+
+    plan = mesh_plan(full, MESH_NCCL_RECORDS)
+    argv = ["--records", str(MESH_NCCL_RECORDS), "--waves", str(MESH_WAVES),
+            "--no-faults", "--device", DEVICE]
+    stores = {tag: os.path.join(WORK_DIR, f"store-mesh-{tag}")
+              for tag in ("nccl1", "one")}
+    rdzv = os.path.join(WORK_DIR, "mesh-nccl1-rendezvous")
+    for path in (*stores.values(), rdzv):
+        shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    mesh = init_rank_mesh(NUM_WORKERS, backend="nccl", device=DEVICE,
+                          rank=0, world=1, store_path=rdzv)
+    with mesh:
+        zero_launches(wrappers)
+        out = run_example(argv + ["--store", stores["nccl1"]], plan, log, mesh)
+        launches = read_launches(wrappers)
+    shapes = {n: sorted(fn.shapes) for n, fn in wrappers.items()}
+    secs = time.perf_counter() - t0
+    emit(phase="mesh.nccl1", ranks=1, backend="nccl",
+         records=MESH_NCCL_RECORDS, waves=MESH_WAVES, seconds=secs,
+         map_s=out["map_s"], reduce_s=out["reduce_s"],
+         records_per_s=out["records_per_s"], valsort_ok=out["valsort_ok"],
+         launches=launches, card=SMI)
+    emit_exchanges("mesh.nccl1", 1, "nccl", [out["exchanges"]], plan)
+    if not out["valsort_ok"]:
+        raise AssertionError("mesh.nccl1: valsort failed")
+    require_launched("mesh.nccl1", launches, wrappers)
+    one = run_example(argv + ["--store", stores["one"]], plan, log)
+    got = {tag: layout(path) for tag, path in stores.items()}
+    for path in stores.values():
+        shutil.rmtree(path, ignore_errors=True)
+    if not one["valsort_ok"] or got["nccl1"] != got["one"]:
+        raise AssertionError("mesh.nccl1: output etags differ from the "
+                             "mesh=None run's")
+    emit(phase="mesh.nccl1.identity", outputs=len(got["one"]),
+         etags_identical=True, one_process_map_s=one["map_s"],
+         one_process_reduce_s=one["reduce_s"])
+    return launches, shapes
+
+
+def phase_mesh_gloo(full, wrappers, log, nccl1_shapes):
+    """MESH_GLOO_RANKS gloo rank processes on the one card (each its own
+    CUDA context, all on cuda:0), through cloudsort_oocore's --ranks, at
+    MESH_GLOO_RECORDS in 4 waves: output etags identical to the mesh=None
+    run's, valsort clean; the ranks' launches summed and every shape a
+    rank launched at (here and in mesh.nccl1) held bit-identical
+    (`mesh.hold`). Then the in-memory distributed_sort_payload over the
+    same ranks in both payload modes, bit-identical (sha256 of the whole
+    output) to the one-process run's."""
+    from repro_torch.examples import cloudsort_e2e
+
+    g = MESH_GLOO_RANKS
+    plan = mesh_plan(full, MESH_GLOO_RECORDS)
+    argv = ["--records", str(MESH_GLOO_RECORDS), "--waves", str(MESH_WAVES),
+            "--no-faults", "--device", f"{DEVICE}:0"]
+    stores = {tag: os.path.join(WORK_DIR, f"store-mesh-{tag}")
+              for tag in ("gloo", "one")}
+    for path in stores.values():
+        shutil.rmtree(path, ignore_errors=True)
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    out = run_example(argv + ["--store", stores["gloo"], "--ranks", str(g),
+                             "--backend", "gloo"], plan, log)
+    secs = time.perf_counter() - t0
+    ranks = out["ranks"]
+    launches = read_launches(wrappers, [r["launches"] for r in ranks])
+    emit(phase="mesh.gloo", ranks=g, backend="gloo",
+         records=MESH_GLOO_RECORDS, waves=MESH_WAVES, seconds=secs,
+         map_s=out["map_s"], reduce_s=out["reduce_s"],
+         records_per_s=out["records_per_s"], valsort_ok=out["valsort_ok"],
+         launches=launches, rank_launches=[r["launches"] for r in ranks],
+         card=SMI)
+    emit_exchanges("mesh.gloo", g, "gloo", [r["exchanges"] for r in ranks],
+                   plan)
+    if not out["valsort_ok"]:
+        raise AssertionError("mesh.gloo: valsort failed")
+    require_launched("mesh.gloo", launches, wrappers)
+    for r in ranks:
+        require_launched(f"mesh.gloo rank {r['rank']}", r["launches"],
+                         wrappers)
+    hold_shapes("mesh", wrappers,
+                [nccl1_shapes] + [r["shapes"] for r in ranks])
+    one = run_example(argv + ["--store", stores["one"]], plan, log)
+    got = {tag: layout(path) for tag, path in stores.items()}
+    for path in stores.values():
+        shutil.rmtree(path, ignore_errors=True)
+    if not one["valsort_ok"] or got["gloo"] != got["one"]:
+        raise AssertionError("mesh.gloo: output etags differ from the "
+                             "mesh=None run's")
+    digests = {}
+    for mode in ("through", "late"):
+        e2e = ["--records", str(IDENTITY_RECORDS), "--payload-mode", mode,
+               "--device", f"{DEVICE}:0"]
+        with stdout_to(log):
+            t0 = time.perf_counter()
+            ranked = cloudsort_e2e.main(e2e + ["--ranks", str(g), "--backend",
+                                               "gloo"])
+            ranked_s = time.perf_counter() - t0
+            alone = cloudsort_e2e.main(e2e)
+        digests[mode] = ranked["digest"]
+        if not (ranked["valsort_ok"] and alone["valsort_ok"]
+                and ranked["digest"] == alone["digest"]):
+            raise AssertionError(f"mesh.gloo: distributed_sort_payload "
+                                 f"({mode}) over {g} ranks differs from the "
+                                 "one-process run")
+        emit(phase="mesh.gloo.payload", mode=mode, records=IDENTITY_RECORDS,
+             ranks=g, seconds=ranked_s, sort_s=ranked["sort_s"],
+             one_process_sort_s=alone["sort_s"], bit_identical=True)
+    emit(phase="mesh.gloo.identity", outputs=len(got["one"]),
+         etags_identical=True, one_process_map_s=one["map_s"],
+         one_process_reduce_s=one["reduce_s"], payload_digests=digests)
+    return launches
+
+
 def phase_quickstart(wrappers, log):
     """The quickstart twin on the card (8 workers, 4 rounds): valsort
     clean; the sort, partition and merge kernels launched and held."""
@@ -2275,11 +2472,11 @@ def emit_cost_flops(costs):
          card=SMI)
 
 
-def run_example(argv, plan, log):
+def run_example(argv, plan, log, mesh=None):
     from repro_torch.examples import cloudsort_oocore
 
-    with contextlib.redirect_stdout(log):
-        return cloudsort_oocore.main(argv, plan=plan)
+    with stdout_to(log):
+        return cloudsort_oocore.main(argv, plan=plan, mesh=mesh)
 
 
 def main():
@@ -2432,7 +2629,13 @@ def run(log):
                                   wrappers)
     by_phase["cloud"] = timed("cloud", phase_cloud, full, wrappers)
 
-    # ---- 10.-12. the other users of the shuffle ----
+    # ---- 10. the rank mesh: one NCCL rank, gloo ranks on the one card ----
+    by_phase["mesh.nccl1"], nccl1_shapes = timed(
+        "mesh.nccl1", phase_mesh_nccl1, full, wrappers, log)
+    by_phase["mesh.gloo"] = timed("mesh.gloo", phase_mesh_gloo, full,
+                                  wrappers, log, nccl1_shapes)
+
+    # ---- 11.-13. the other users of the shuffle ----
     by_phase["quickstart"] = timed("quickstart", phase_quickstart, wrappers,
                                    log)
     by_phase["groupby"] = timed("groupby", phase_groupby, wrappers, log)
@@ -2440,13 +2643,13 @@ def run(log):
     by_phase["epoch"] = timed("epoch", phase_epoch_full, wrappers)
     by_phase["moe"] = timed("moe", phase_moe_identity, wrappers)
 
-    # ---- 13. serving qwen2-moe-a2.7b ----
+    # ---- 14. serving qwen2-moe-a2.7b ----
     costs = {}
     timed("serve.identity", phase_serve_identity, wrappers)
     by_phase["serve"] = timed("serve.full", phase_serve_full, wrappers,
                               costs)
 
-    # ---- 14. training qwen2-moe-a2.7b and tinyllama-1.1b, the drivers ----
+    # ---- 15. training qwen2-moe-a2.7b and tinyllama-1.1b, the drivers ----
     by_phase["train.identity"] = timed("train.identity",
                                        phase_train_identity, wrappers)
     by_phase["train.full"] = timed("train.full", phase_train_full, wrappers,
@@ -2458,7 +2661,7 @@ def run(log):
     by_phase["serve.launch"] = timed("serve.launch", phase_serve_launch,
                                      wrappers, log)
 
-    # ---- 15. the other families: vlm, mla, ssm, hybrid, encdec ----
+    # ---- 16. the other families: vlm, mla, ssm, hybrid, encdec ----
     for family in FAMILY_ARCHS:
         by_phase[f"{family}.identity"] = timed(
             f"{family}.identity", phase_family_identity, family, wrappers)
@@ -2468,7 +2671,7 @@ def run(log):
                                      wrappers, costs)
     emit_cost_flops(costs)
 
-    # ---- 17. the kernels line, then the ok line ----
+    # ---- 18. the kernels line, then the ok line ----
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_phase"] = {p: c[row["name"]]

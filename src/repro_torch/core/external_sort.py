@@ -21,6 +21,14 @@ Paper mapping:
       workers holds one range-partitioned sorted run. Payload rows of
       shuffled records are located by O(1) id-offset arithmetic.
 
+  ranks (launch/mesh.RankMesh): G processes, one card each, split the W
+      workers; each loads only its workers' records of a wave, the
+      streaming sort's all_to_alls cross ranks, the payload rows follow
+      by core/payload.late_fetch_payload on the card, and each rank
+      spills only its workers' runs, under their global ids — the spill
+      objects are the one-process run's, name for name and byte for
+      byte.
+
   spill (§2.3): each worker's run is written under plan.spill_prefix as
       one sorted run object with its per-reducer offsets in the object's
       metadata; write-behind via io/staging.AsyncWriter.
@@ -41,8 +49,11 @@ import time
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core.collectives import any_across
 from repro_torch.core.exoshuffle import ShuffleConfig
+from repro_torch.core.payload import late_fetch_payload
 from repro_torch.core.streaming import streaming_sort
 from repro_torch.io import records as rec
 from repro_torch.io import staging
@@ -216,18 +227,31 @@ class WaveSorter:
 
     Wrapped by shuffle/sort.SortMapOp. Deterministic by construction: the
     spilled run bytes and reducer offsets depend only on (wave contents,
-    plan, W) — never on the device, the scheduler or the cluster worker
-    that executes the wave.
+    plan, W) — never on the device, the scheduler, the cluster worker
+    that executes the wave, or how many ranks split it.
+
+    With a `mesh` (launch/mesh.RankMesh, the twin of the reference's
+    `mesh, axis_names`) this rank holds workers [lo, lo + W/G): it loads
+    their records of each wave, sorts with the other ranks, and spills
+    their runs; `device` is then the mesh's.
     """
 
     def __init__(self, plan: ExternalSortPlan, num_workers: int,
                  boundaries: Sequence[int] | np.ndarray | None = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.plan = plan
         self.w = int(num_workers)
         self.r1 = plan.reducers_per_worker
         self.pw = plan.payload_words
-        self.device = u32.resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = u32.resolve_device(device)
+            self.wl, self.lo = self.w, 0
+        else:
+            require(mesh.num_workers == self.w, "num_workers", self.w,
+                    f"must be the mesh's ({mesh})")
+            self.device = mesh.device
+            self.wl, self.lo = mesh.workers_per_rank, mesh.worker_lo
         _validate_plan(plan, self.w)
         # Explicit (sampled) reducer boundaries replace the equal split in
         # BOTH device routing and the host-side reducer_offsets below.
@@ -248,69 +272,141 @@ class WaveSorter:
         # lock for the sort step and overlap on everything else.
         self._device_lock = threading.Lock()
 
+    @property
+    def worker_ids(self) -> range:
+        """Global ids of the workers whose runs this sorter spills."""
+        return range(self.lo, self.lo + self.wl)
+
     def load_wave(self, store: StoreBackend, bucket: str, objs):
         """Chunked-GET a wave's input objects into one preallocated
         interleaved-row buffer (zero-copy decode); returns (keys, ids,
-        payload)."""
+        payload). With a mesh, only this rank's records of the wave: an
+        object that straddles two ranks is read by ranged GETs, the
+        header by the rank that holds its first record, so the bytes read
+        summed over ranks are the one-process run's."""
         plan = self.plan
-        n_wave = sum(
-            (m.size - rec.HEADER_BYTES) // plan.record_bytes for m in objs)
-        rows = rec.alloc_rows(n_wave, self.pw)
-        at = 0
-        for m in objs:
-            dec = rec.StreamDecoder(rows, at, what=m.key)
-            for chunk in store.get_chunks(bucket, m.key, plan.store_chunk_bytes):
-                dec.feed(chunk)
-            at += dec.finish()
+        counts = [(m.size - rec.HEADER_BYTES) // plan.record_bytes
+                  for m in objs]
+        lo, hi = 0, sum(counts)
+        if self.mesh is not None:
+            lo, hi = self.mesh.share(hi)
+        rows = rec.alloc_rows(hi - lo, self.pw)
+        at = base = 0
+        for m, c in zip(objs, counts):
+            a, b = max(lo - base, 0), min(hi - base, c)
+            base += c
+            if a >= b:
+                continue
+            if (a, b) == (0, c):
+                dec = rec.StreamDecoder(rows, at, what=m.key)
+                for chunk in store.get_chunks(bucket, m.key,
+                                              plan.store_chunk_bytes):
+                    dec.feed(chunk)
+                at += dec.finish()
+            else:
+                at += _load_records(store, bucket, m, a, b, c, rows, at,
+                                    plan.store_chunk_bytes)
         return rec.split_rows(rows)
 
-    def device_sort(self, keys, ids, *, timeline: PhaseTimeline | None = None,
-                    tag: str = ""):
+    def device_sort(self, keys, ids, payload=None, *,
+                    timeline: PhaseTimeline | None = None, tag: str = ""):
         """Stage 1 of the map body: the batched sort on the device
         (serialized on the device lock), returned as host numpy copies
-        (sk, si, vcounts). With a timeline, the interval is recorded under
-        both map.device_sort and map.compute."""
+        (sk, si, vcounts, rows). `rows` is None without a mesh (the
+        encode stage gathers payload rows from the whole wave on the
+        host); with one it holds, for each of the rank's workers, the
+        (vcounts[i], pw) payload of its sorted records, fetched from the
+        ranks that loaded them. With a timeline, the interval is recorded
+        under both map.device_sort and map.compute. Overflow raises on
+        every rank together."""
         t = time.perf_counter()
         with self._device_lock:
             sk, si, vcounts, ovf = streaming_sort(
                 u32.from_numpy(keys, self.device),
                 u32.from_numpy(ids, self.device),
                 num_workers=self.w, num_rounds=self.plan.num_rounds,
-                cfg=self.cfg, device=self.device)
-            sk, si = u32.to_numpy(sk), u32.to_numpy(si)
+                cfg=self.cfg, device=self.device, mesh=self.mesh)
+            if ovf:
+                raise RuntimeError(
+                    "shuffle block overflow — raise capacity_factor"
+                )
             vcounts = vcounts.cpu().numpy()
-        if ovf:
-            raise RuntimeError(
-                "shuffle block overflow — raise capacity_factor"
-            )
+            rows = None
+            if self.mesh is not None and self.pw:
+                rows = self._fetch_rows(si, vcounts, ids, payload)
+            sk, si = u32.to_numpy(sk), u32.to_numpy(si)
         if timeline is not None:
             timeline.add("map.device_sort", t, worker=tag)
             timeline.add("map.compute", t, worker=tag)
-        return sk, si, vcounts
+        return sk, si, vcounts, rows
+
+    def _fetch_rows(self, si, vcounts, ids, payload):
+        """The payload rows of each of the rank's workers' sorted records
+        (si, (W/G * m,) u32 on the card; vcounts valid each), by
+        late_fetch_payload over the wave's record positions: position //
+        (n_wave/W) is the worker whose rank loaded the row. A position is
+        id - base when the whole wave's ids are contiguous (gensort's
+        layout: each rank's share is, from the first rank's base on);
+        otherwise every rank gathers the wave's ids and finds positions
+        as the one-process encode stage does."""
+        mesh, dev = self.mesh, self.device
+        wl = self.wl
+        m = si.shape[0] // wl
+        nr = ids.shape[0]  # this rank's records of the wave
+        base = _contiguous_id_base(ids)
+        every = mesh.all_gather_object(base)
+        contiguous = None not in every and every == [
+            every[0] + r * nr for r in range(mesh.world)]
+        valid = (torch.arange(m, device=dev)[None, :]
+                 < torch.from_numpy(vcounts).to(dev)[:, None])
+        if contiguous:
+            pos = u32.widen(si).reshape(wl, m) - every[0]
+        else:
+            wave = np.concatenate(mesh.all_gather_object(
+                np.asarray(ids, np.uint32)))
+            order = np.argsort(wave)
+            at = np.minimum(np.searchsorted(wave[order], u32.to_numpy(si)),
+                            wave.size - 1)
+            pos = torch.from_numpy(order[at]).to(dev).reshape(wl, m)
+        pos = torch.where(valid, pos, u32.MASK)
+        n = nr // wl  # the wave's records per worker
+        rows, overflow = late_fetch_payload(
+            u32.narrow(pos), u32.from_numpy(payload, dev).reshape(wl, n, -1),
+            num_workers=self.w, records_per_worker=n,
+            capacity=self.cfg.block_capacity(m), impl=self.cfg.impl,
+            mesh=mesh)
+        if any_across(overflow, mesh):
+            raise RuntimeError("payload fetch block overflow — raise "
+                               "capacity_factor")
+        return [u32.to_numpy(rows[i, :c]) for i, c in enumerate(vcounts)]
 
     def encode_and_spill(self, store: StoreBackend, bucket: str, g: int,
                          sk, si, vcounts, ids, payload, *,
                          spiller: staging.AsyncWriter,
                          timeline: PhaseTimeline, tag: str,
                          offsets_out: dict, span: str = "map.encode",
-                         t0: float | None = None) -> None:
-        """Stage 2 of the map body: slice each worker's run out of the
-        sorted wave, gather payload rows, encode, and spill; per-reducer
-        offsets go to `offsets_out[(g, wid)]` and the spill metadata."""
-        plan, w, pw = self.plan, self.w, self.pw
+                         t0: float | None = None, rows=None) -> None:
+        """Stage 2 of the map body: slice each held worker's run out of
+        the sorted wave, gather payload rows (from the wave's `ids` and
+        `payload`, or the fetched `rows` with a mesh), encode, and spill;
+        per-reducer offsets go to `offsets_out[(g, wid)]` and the spill
+        metadata, under global worker ids."""
+        plan, pw = self.plan, self.pw
         t_comp = time.perf_counter() if t0 is None else t0
-        id_base = _contiguous_id_base(ids) if pw else None
+        id_base = _contiguous_id_base(ids) if pw and rows is None else None
         order = sorted_ids = None
-        if pw and id_base is None:
+        if pw and rows is None and id_base is None:
             order = np.argsort(ids)
             sorted_ids = ids[order]
-        seg = sk.shape[0] // w
-        for wid in range(w):
-            n = int(vcounts[wid])
-            run_k = sk[wid * seg : wid * seg + n]
-            run_i = si[wid * seg : wid * seg + n]
+        seg = sk.shape[0] // self.wl
+        for i, wid in enumerate(self.worker_ids):
+            n = int(vcounts[i])
+            run_k = sk[i * seg : i * seg + n]
+            run_i = si[i * seg : i * seg + n]
             run_p = None
-            if pw:
+            if rows is not None:
+                run_p = rows[i]
+            elif pw:
                 if id_base is not None:
                     sel = run_i.astype(np.int64) - id_base
                 else:
@@ -343,11 +439,47 @@ class WaveSorter:
                           keys, ids, payload, *, spiller: staging.AsyncWriter,
                           timeline: PhaseTimeline, tag: str,
                           offsets_out: dict) -> None:
-        """Sort wave g and spill each worker's run — the monolithic
+        """Sort wave g and spill each held worker's run — the monolithic
         (non-pipelined) map body."""
         t_comp = time.perf_counter()
-        sk, si, vcounts = self.device_sort(keys, ids)
+        sk, si, vcounts, rows = self.device_sort(keys, ids, payload)
         self.encode_and_spill(store, bucket, g, sk, si, vcounts, ids,
                               payload, spiller=spiller, timeline=timeline,
                               tag=tag, offsets_out=offsets_out,
-                              span="map.compute", t0=t_comp)
+                              span="map.compute", t0=t_comp, rows=rows)
+
+
+def _load_records(store: StoreBackend, bucket: str, meta, a: int, b: int,
+                  count: int, rows: np.ndarray, at: int,
+                  chunk_bytes: int) -> int:
+    """Records [a, b) of one encoded object of `count` records, by ranged
+    GETs of at most `chunk_bytes`, into rows[at:]. The range starts at
+    byte 0 when a == 0, so the object's header is read (and checked) by
+    the reader of its first record. Returns b - a."""
+    rb = rows.shape[1] * 4
+    lo, length = rec.body_range(a, b - a, rows.shape[1] - 2)
+    if a == 0:
+        lo, length = 0, length + rec.HEADER_BYTES
+    dest = memoryview(rows).cast("B")
+    off = at * rb
+    header = b""
+    for start in range(lo, lo + length, chunk_bytes):
+        chunk = store.get_range(bucket, meta.key, start,
+                                min(chunk_bytes, lo + length - start))
+        view = memoryview(chunk)
+        if start < rec.HEADER_BYTES:
+            take = rec.HEADER_BYTES - start
+            header += bytes(view[:take])
+            view = view[take:]
+        dest[off:off + len(view)] = view
+        off += len(view)
+    if a == 0:
+        n, pw = rec.decode_header(header)
+        if (n, pw) != (count, rows.shape[1] - 2):
+            raise ValueError(f"{meta.key}: header says {n} records of "
+                             f"{pw} payload words, the listing "
+                             f"{count} of {rows.shape[1] - 2}")
+    if off != (at + b - a) * rb:
+        raise ValueError(f"{meta.key}: ranged read of records [{a}, {b}) "
+                         f"returned {off - at * rb} bytes")
+    return b - a

@@ -1,8 +1,13 @@
-"""CloudSort out-of-core (paper §2.3–§2.5) on one GPU: the dataset lives
-in an object store, the card holds one map wave.
+"""CloudSort out-of-core (paper §2.3–§2.5) on one GPU, or on G ranks: the
+dataset lives in an object store, the cards hold one map wave.
 
     PYTHONPATH=src python -m repro_torch.examples.cloudsort_oocore \
-        [--records 131072] [--device cuda|cpu] [--reduce-merge-impl numpy|device]
+        [--records 131072] [--device cuda|cuda:i|cpu]
+        [--reduce-merge-impl numpy|device] [--ranks G] [--backend nccl|gloo]
+
+    # one rank per card, joined by torchrun
+    PYTHONPATH=src torchrun --nproc-per-node G \
+        -m repro_torch.examples.cloudsort_oocore [...]
 
 The twin of examples/cloudsort_oocore.py, through the port: gensort
 writes input partitions into a TIERED store (io/tiered.py: a durable
@@ -18,9 +23,22 @@ the Table-2 TCO is priced from the durable tier's measured requests.
 the multi-worker cluster executor, --kill-worker I:K kills worker I
 after K tasks. `main(argv, plan=...)` lets a caller supply its own
 ExternalSortPlan and returns the run's numbers.
+
+--ranks G (G divides W = 8) runs the sort as G processes of one
+torch.distributed group (launch/mesh.py), each holding W/G workers on
+its own card, the all_to_alls as collectives: NCCL on cards, gloo on the
+CPU (`--ranks G --backend gloo --device cpu`); `--backend gloo --device
+cuda:0` puts G ranks on one card. Without torchrun the G processes are
+spawned here. Rank 0 writes the input before a barrier and runs valsort
+after the reduce; the report is every rank's, merged. The numbers
+returned are rank 0's, with each rank's kernel launches and all_to_all
+log under "ranks" when this process spawned them. `main(argv,
+mesh=...)` runs as one rank of a group the caller already joined.
 """
 import argparse
+import contextlib
 import dataclasses
+import os
 import tempfile
 import time
 
@@ -30,6 +48,8 @@ from repro_torch.core.cost_model import (cloudsort_tco, measured_cloudsort_tco,
 from repro_torch.data import gensort, valsort
 from repro_torch.io.middleware import RetryPolicy
 from repro_torch.io.tiered import tiered_cloudsort_store
+from repro_torch.launch.mesh import (init_rank_mesh, spawn_ranks,
+                                     under_torchrun)
 from repro_torch.obs import Tracer, render_report, write_chrome_trace
 from repro_torch.shuffle.sort import sort_shuffle_job
 
@@ -38,7 +58,7 @@ from repro_torch.shuffle.sort import sort_shuffle_job
 NUM_WORKERS = 8
 
 
-def main(argv=None, *, plan=None) -> dict:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--records", type=int, default=1 << 17)
     ap.add_argument("--store", default=None,
@@ -58,13 +78,72 @@ def main(argv=None, *, plan=None) -> dict:
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome trace-event JSON of the run "
                          "(load in chrome://tracing or ui.perfetto.dev)")
-    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where the sort and the device merge run")
+    ap.add_argument("--device", default="cuda",
+                    help="where the sort and the device merge run: cuda "
+                         "(a rank's own card), cuda:i or cpu")
     ap.add_argument("--reduce-merge-impl", choices=("numpy", "device"),
                     default=None,
                     help="emit-window merge (default: the plan's)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="torch.distributed ranks that split the W workers "
+                         "(spawned here unless run under torchrun)")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="collective backend of the ranks (default: nccl "
+                         "on cuda, gloo on cpu)")
+    return ap
 
+
+def main(argv=None, *, plan=None, mesh=None) -> dict:
+    args = _parser().parse_args(argv)
+    if mesh is not None:
+        return run(args, plan, mesh)
+    if under_torchrun():
+        mesh = init_rank_mesh(NUM_WORKERS, backend=args.backend,
+                              device=args.device)
+        with mesh:
+            if args.ranks not in (1, mesh.world):
+                raise ValueError(f"--ranks {args.ranks} under torchrun's "
+                                 f"world of {mesh.world}")
+            if mesh.world > 1 and not args.store:
+                raise ValueError("--store: the ranks must share one store "
+                                 "root")
+            return run(args, plan, mesh)
+    if args.ranks == 1:
+        return run(args, plan, None)
+    # All ranks share one store root: fix it before they start.
+    args.store = args.store or tempfile.mkdtemp(prefix="cloudsort-store-")
+    ranks = spawn_ranks(_rank_main, args.ranks, args, plan)
+    return dict(ranks[0]["out"], ranks=[r["rank"] for r in ranks])
+
+
+def _rank_main(rank: int, world: int, store_path: str, args, plan) -> dict:
+    """One spawned rank: join the group, run, report this process's
+    kernel launches (and their shapes) and its all_to_all log."""
+    from repro_torch.shuffle.worker_main import kernel_launches, kernel_shapes
+
+    mesh = init_rank_mesh(NUM_WORKERS, backend=args.backend,
+                          device=args.device, rank=rank, world=world,
+                          store_path=store_path)
+    with mesh:
+        out = run(args, plan, mesh)
+    return {"out": out, "rank": {
+        "rank": rank, "launches": kernel_launches(),
+        "shapes": kernel_shapes(), "exchanges": out["exchanges"]}}
+
+
+def run(args, plan, mesh) -> dict:
+    """The run, on one process or as one rank of `mesh`."""
+    if mesh is not None and args.workers:
+        raise ValueError("--workers (the cluster executor) and --ranks do "
+                         "not combine: each rank runs the inline driver")
+    if mesh is None or mesh.rank == 0:
+        return _run(args, plan, mesh)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return _run(args, plan, mesh)
+
+
+def _run(args, plan, mesh) -> dict:
+    lead = mesh is None or mesh.rank == 0
     w = NUM_WORKERS
     if plan is None:
         plan = dataclasses.replace(ooc_smoke_plan(), impl="kernel")
@@ -99,26 +178,37 @@ def main(argv=None, *, plan=None) -> dict:
         retry=RetryPolicy(max_attempts=10, base_delay_s=0.01, max_delay_s=0.5),
         tracer=tracer,
     )
-    store.create_bucket("cloudsort")
     data_bytes = args.records * plan.record_bytes
     mode = "clean" if faults is None else (
         f"faults: latency={faults.latency_s*1e3:.1f}ms "
         f"bw={faults.bandwidth_bps/1e6:.0f}MB/s "
         f"throttle={faults.get_rate:.0f}G/{faults.put_rate:.0f}P req/s")
     print(f"[store] tiered (durable + ssd spill) at {root} — {mode}")
-    print(f"[device] {args.device}; W={w} workers; impl={plan.impl}; "
+    device = args.device if mesh is None else mesh.device
+    print(f"[device] {device}; W={w} workers; impl={plan.impl}; "
           f"reduce merge={plan.reduce_merge_impl}")
+    if mesh is not None:
+        print(f"[ranks] {mesh.world} x {w // mesh.world} workers, "
+              f"{mesh.backend}")
+        mesh.record_exchanges()
 
     # --- generate into the store (paper §3.2, gensort -> S3) ---
     t0 = time.time()
-    in_ck, nparts = gensort.write_to_store(
-        store, "cloudsort", plan.input_prefix, args.records,
-        plan.input_records_per_partition, plan.payload_words,
-        device=args.device,
-    )
+    in_ck = None
+    if lead:
+        store.create_bucket("cloudsort")
+        in_ck, nparts = gensort.write_to_store(
+            store, "cloudsort", plan.input_prefix, args.records,
+            plan.input_records_per_partition, plan.payload_words,
+            device=device,
+        )
+    if mesh is not None:
+        mesh.barrier()
+        store.create_bucket("cloudsort")
     gen_s = time.time() - t0
-    print(f"[gen] {args.records} records -> {nparts} partitions "
-          f"({data_bytes/1e6:.1f} MB) in {gen_s:.2f}s checksum={in_ck}")
+    if lead:
+        print(f"[gen] {args.records} records -> {nparts} partitions "
+              f"({data_bytes/1e6:.1f} MB) in {gen_s:.2f}s checksum={in_ck}")
 
     # --- out-of-core sort: store -> map waves -> spill -> reduce -> store ---
     cplan = None
@@ -133,7 +223,7 @@ def main(argv=None, *, plan=None) -> dict:
             cplan = dataclasses.replace(
                 cplan, fail_after_tasks={int(idx): int(k or 1)})
     job = sort_shuffle_job(store, "cloudsort", num_workers=w, plan=plan,
-                           tracer=tracer, device=args.device)
+                           tracer=tracer, device=device, mesh=mesh)
     if cplan is not None:
         crep = job.run(cluster=cplan)
         rep = crep.report
@@ -178,13 +268,23 @@ def main(argv=None, *, plan=None) -> dict:
 
     for line in render_report(rep):
         print(line)
+    exchanges = None
+    if mesh is not None:
+        exchanges = mesh.exchange_log()
+        sent = sum(x["bytes"] for x in exchanges)
+        print(f"[ranks] {len(exchanges)} all_to_alls on this rank, "
+              f"{sent/1e6:.1f} MB handed to them, "
+              f"{sum(x['ms'] for x in exchanges):.1f} ms "
+              f"({exchanges[0]['clock'] if exchanges else '-'} clock)")
+    if not lead:
+        return {"exchanges": exchanges}
 
     # --- validate from the store (paper §3.2, valsort over S3 output) ---
     t0 = time.time()
     val = valsort.validate_from_store(
         store, "cloudsort", plan.output_prefix, in_ck,
         chunk_records=max(plan.output_part_records, 1 << 13),
-        device=args.device)
+        device=device)
     val_s = time.time() - t0
     print(f"[valsort] within={val.sorted_within} across={val.sorted_across} "
           f"checksum={val.checksum_match} records={val.total_records} "
@@ -230,6 +330,9 @@ def main(argv=None, *, plan=None) -> dict:
         "valsort_s": val_s,
         "valsort_ok": val.ok,
         "store": root,
+        "ranks": 1 if mesh is None else mesh.world,
+        "backend": None if mesh is None else mesh.backend,
+        "exchanges": exchanges,
     }
 
 

@@ -134,6 +134,15 @@ class StoreStats:
             for f in dataclasses.fields(self)
         })
 
+    # Pickled without its lock (a report crosses ranks as a pickle).
+    def __getstate__(self) -> dict:
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        object.__setattr__(self, "_lock", threading.Lock())
+
 
 @dataclasses.dataclass(frozen=True)
 class ObjectMeta:

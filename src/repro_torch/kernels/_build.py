@@ -8,11 +8,15 @@ no PyTorch header is compiled and the build takes seconds. Importing a
 kernel module builds nothing; the first CUDA launch calls `function()`.
 
 The flags target Hopper only (sm_90a); a missing `nvcc` or a failed
-build raises — there is no fallback.
+build raises — there is no fallback. Several processes (the ranks of a
+mesh, a fleet's children) may build at once: the build holds a file
+lock on its output directory, so one compiles and the others wait and
+load the finished libraries.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -73,13 +77,25 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile every csrc/*.cu (in parallel) unless this source hash is
-    already built; returns the directory holding the libraries."""
+    already built; returns the directory holding the libraries. Holds an
+    exclusive lock on `<dir>/build.lock` while it checks and compiles."""
     out = BUILD_ROOT / source_hash()
     libs = {n: out / f"lib{n}.so" for n in SOURCES}
     if all(p.exists() for p in libs.values()):
         return out
     nvcc = _nvcc()
     out.mkdir(parents=True, exist_ok=True)
+    with open(out / "build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not all(p.exists() for p in libs.values()):
+                _compile(nvcc, libs)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out
+
+
+def _compile(nvcc: str, libs: dict) -> None:
     t0 = time.perf_counter()
     procs = {}
     for name, lib in libs.items():
@@ -99,7 +115,6 @@ def build() -> Path:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     build_info["seconds"] = time.perf_counter() - t0
-    return out
 
 
 def function(name: str):

@@ -14,7 +14,11 @@ everything the drivers used to hand-roll per workload:
   * the span timeline and job-wide cancellation;
   * execution: inline single-host (workers=0) or the multi-worker phase
     driver with durable-confirmation failure recovery (workers>=1, or an
-    explicit Worker fleet for failure injection).
+    explicit Worker fleet for failure injection);
+  * on a rank mesh (launch/mesh.RankMesh, a job built with `mesh=`):
+    the inline driver on every rank, over all map tasks and the rank's
+    share of the partitions, with rank 0 clearing the prefixes, barriers
+    around the map, and the report gathered from every rank.
 
 The sort and group-by instantiations (shuffle/sort.py,
 shuffle/groupby.py) differ only in the operators they pass here — which
@@ -168,10 +172,16 @@ class ShuffleSession:
         require(self.num_tasks >= 1, "input_prefix", plan.input_prefix,
                 "MapOp.plan_tasks found no input splits")
         self.num_partitions = job.partitioner.num_partitions
+        # On a rank mesh each rank reduces the partitions of its workers
+        # (an equal contiguous share of R = W*R1) under its own governor:
+        # the budget binds each rank's host.
+        mesh = job.mesh
+        self.partitions = (range(self.num_partitions) if mesh is None
+                           else range(*mesh.share(self.num_partitions)))
         # Governor slots = the cluster-wide concurrent-merge ceiling:
         # every scheduler (one per worker) draws on one global budget.
         self.slots = min(max(int(schedulers), 1) * plan.parallel_reducers,
-                         self.num_partitions)
+                         len(self.partitions))
         # One Tracer per run unless the job brought its own (examples
         # pass the same tracer to the store stack so request attempts
         # land on the same timeline as the spans).
@@ -191,15 +201,19 @@ class ShuffleSession:
             chunk_cap=plan.merge_chunk_bytes,
             record_bytes=plan.record_bytes,
             slots=self.slots,
-            partitions=self.num_partitions,
+            partitions=len(self.partitions),
             tracer=self.tracer,
         )
         # Overwrite semantics: clear stale spill/output objects from any
         # prior run so the reduce pass and downstream validation see only
-        # this run.
-        for prefix in (plan.spill_prefix, plan.output_prefix):
-            for meta in store.list_objects(bucket, prefix):
-                store.delete(bucket, meta.key)
+        # this run. On a mesh only rank 0 clears, and the others wait for
+        # it: a late rank must not delete an early rank's fresh spills.
+        if mesh is None or mesh.rank == 0:
+            for prefix in (plan.spill_prefix, plan.output_prefix):
+                for meta in store.list_objects(bucket, prefix):
+                    store.delete(bucket, meta.key)
+        if mesh is not None:
+            mesh.barrier()
         # Bare data planes (no MetricsMiddleware anywhere) still run;
         # their reports just carry zeroed counters.
         self.base_stats = (store.stats_snapshot()
@@ -225,9 +239,13 @@ class ShuffleSession:
 
     def run_single_host(self) -> ShuffleReport:
         """The inline driver: one staged map loop, one reduce scheduler
-        running `slots` streaming merges."""
+        running `slots` streaming merges. On a rank mesh every rank runs
+        every map task, in task order (each wave's device step is one
+        collective program), then its share of the partitions; map and
+        reduce are timed between barriers, and every rank returns the
+        report merged from all of them (merge_rank_reports)."""
         job = self.job
-        store, bucket, plan = job.store, job.bucket, job.plan
+        store, bucket, plan, mesh = job.store, job.bucket, job.plan, job.mesh
         t0 = time.perf_counter()
         pending = collections.deque(range(self.num_tasks))
         pop_lock = threading.Lock()
@@ -239,9 +257,11 @@ class ShuffleSession:
         with use_context(self.tracer.root):
             rt.run_map_tasks(store, bucket, job.map_op, pop_task, plan=plan,
                              timeline=self.timeline, control=self.control)
+        if mesh is not None:
+            mesh.barrier()
         map_seconds = time.perf_counter() - t0
 
-        parts = collections.deque(range(self.num_partitions))
+        parts = collections.deque(self.partitions)
 
         def pop_partition() -> int | None:
             with pop_lock:
@@ -253,8 +273,11 @@ class ShuffleSession:
                                runs_hint=self.num_tasks).run(pop_partition)
         self.control.raise_first()
         reduce_seconds = time.perf_counter() - t0
-        return self.build_report(map_seconds=map_seconds,
-                                 reduce_seconds=reduce_seconds)
+        report = self.build_report(map_seconds=map_seconds,
+                                   reduce_seconds=reduce_seconds)
+        if mesh is None:
+            return report
+        return merge_rank_reports(mesh.all_gather_object(report))
 
     def run_cluster(self,
                     workers: Sequence[ex.Worker]) -> ClusterShuffleReport:
@@ -371,7 +394,7 @@ class ShuffleSession:
             num_workers=map_op.num_mesh_workers,
             num_reducers=self.num_partitions,
             spill_objects=self.num_tasks * map_op.spill_objects_per_task,
-            output_objects=self.num_partitions,
+            output_objects=len(self.partitions),
             map_seconds=map_seconds,
             reduce_seconds=reduce_seconds,
             working_set_records=map_op.working_set_records,
@@ -392,6 +415,39 @@ class ShuffleSession:
         )
 
 
+def merge_rank_reports(reports: Sequence[ShuffleReport]) -> ShuffleReport:
+    """One report of a run on a rank mesh from each rank's: map and reduce
+    seconds the slowest rank's, store counters, object counts and phase
+    totals summed, the merge peak the largest rank's (each rank has its
+    own budget), spans of every rank with the worker tagged "rank<r>/".
+    The plan-wide fields (records, waves, W, R) are every rank's alike."""
+    first = reports[0]
+
+    def total(stats):
+        return sum(stats, StoreStats())
+
+    phase_seconds: dict[str, float] = collections.defaultdict(float)
+    for rep in reports:
+        for name, sec in rep.phase_seconds.items():
+            phase_seconds[name] += sec
+    return dataclasses.replace(
+        first,
+        spill_objects=sum(r.spill_objects for r in reports),
+        output_objects=sum(r.output_objects for r in reports),
+        map_seconds=max(r.map_seconds for r in reports),
+        reduce_seconds=max(r.reduce_seconds for r in reports),
+        stats=total(r.stats for r in reports),
+        tier_stats=(None if first.tier_stats is None else {
+            tier: total(r.tier_stats[tier] for r in reports)
+            for tier in first.tier_stats}),
+        reduce_peak_merge_bytes=max(r.reduce_peak_merge_bytes
+                                    for r in reports),
+        spans=[dataclasses.replace(sp, worker=f"rank{i}/{sp.worker}")
+               for i, r in enumerate(reports) for sp in r.spans],
+        spans_dropped=sum(r.spans_dropped for r in reports),
+        phase_seconds=dict(phase_seconds))
+
+
 class ShuffleJob:
     """A shuffle workload: operators + partitioner + plan over one store.
 
@@ -399,12 +455,14 @@ class ShuffleJob:
     whole dataflow — N=0 inline on the calling host, N>=1 across N
     emulated workers with application-level failure recovery; pass
     `cluster=` (a shuffle/executor.ClusterPlan) to inject worker deaths,
-    or `worker_list=` to bring a hand-built Worker fleet.
+    or `worker_list=` to bring a hand-built Worker fleet. A job with a
+    `mesh` (launch/mesh.RankMesh) is run by every rank with `run()`.
     """
 
     def __init__(self, store: StoreBackend, bucket: str, *, plan,
                  map_op: MapOp, reduce_op: ReduceOp,
-                 partitioner: Partitioner, tracer: Tracer | None = None):
+                 partitioner: Partitioner, tracer: Tracer | None = None,
+                 mesh=None):
         self.store = store
         self.bucket = bucket
         self.plan = plan
@@ -412,6 +470,7 @@ class ShuffleJob:
         self.reduce_op = reduce_op
         self.partitioner = partitioner
         self.tracer = tracer
+        self.mesh = mesh
 
     def prepare(self, *, schedulers: int = 1) -> ShuffleSession:
         """Preflight one run (validation, task enumeration, governor,
@@ -442,6 +501,9 @@ class ShuffleJob:
             require(fleet is None, "fleet", fleet,
                     "the elastic driver needs a worker_list")
             return self.prepare(schedulers=1).run_single_host()
+        require(self.mesh is None, "workers", workers,
+                "a job on a rank mesh runs the inline driver on each rank: "
+                "run() with no workers, cluster or worker_list")
         require(len(crew) >= 1, "worker_list", len(crew),
                 "must supply >= 1 worker")
         session = self.prepare(schedulers=len(crew))
@@ -450,4 +512,5 @@ class ShuffleJob:
         return session.run_cluster(crew)
 
 
-__all__ = ["KeySample", "ShuffleJob", "ShuffleSession", "sample_boundaries"]
+__all__ = ["KeySample", "ShuffleJob", "ShuffleSession", "merge_rank_reports",
+           "sample_boundaries"]

@@ -10,7 +10,10 @@ count, and under worker kills.
 
 The W mesh workers of the reference are a batch axis here: W is the
 `num_workers` argument (it shapes the spill runs and reducer offsets),
-not a device count.
+not a device count. With a launch/mesh.RankMesh each of G ranks holds
+W/G of them: every rank runs every wave's device step (the wave is one
+SPMD program across ranks), spills its workers' runs, and reduces the
+partitions of its workers on its own card.
 """
 from __future__ import annotations
 
@@ -34,14 +37,14 @@ class SortMapOp(MapOp):
     worker (with per-reducer offsets in the spill metadata)."""
 
     def __init__(self, plan, num_workers: int, boundaries=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         from repro_torch.core import external_sort as xs
 
         self.plan = plan
         self.sorter = xs.WaveSorter(plan, num_workers, boundaries=boundaries,
-                                    device=device)
+                                    device=device, mesh=mesh)
         self.num_mesh_workers = self.sorter.w
-        self.spill_objects_per_task = self.sorter.w
+        self.spill_objects_per_task = self.sorter.wl
         self.spill_offsets: dict[tuple[int, int], np.ndarray] = {}
         self.waves: list = []
 
@@ -67,7 +70,7 @@ class SortMapOp(MapOp):
         from repro_torch.core import external_sort as xs
 
         return [xs._spill_key(self.plan, task, wid)
-                for wid in range(self.sorter.w)]
+                for wid in self.sorter.worker_ids]
 
     def process(self, store: StoreBackend, bucket: str, task: int, data, *,
                 spiller, timeline, tag) -> None:
@@ -81,16 +84,16 @@ class SortMapOp(MapOp):
     # the device boundary so wave N's sort overlaps wave N-1's encode.
     def device_step(self, task: int, data, *, timeline, tag):
         keys, ids, payload = data
-        return data, self.sorter.device_sort(keys, ids, timeline=timeline,
-                                             tag=tag)
+        return data, self.sorter.device_sort(keys, ids, payload,
+                                             timeline=timeline, tag=tag)
 
     def encode_step(self, store: StoreBackend, bucket: str, task: int,
                     staged, *, spiller, timeline, tag) -> None:
-        (keys, ids, payload), (sk, si, vcounts) = staged
+        (keys, ids, payload), (sk, si, vcounts, rows) = staged
         self.sorter.encode_and_spill(
             store, bucket, task, sk, si, vcounts, ids, payload,
             spiller=spiller, timeline=timeline, tag=tag,
-            offsets_out=self.spill_offsets)
+            offsets_out=self.spill_offsets, rows=rows)
 
 
 class _SortMergeSink(PartitionReducer):
@@ -192,6 +195,9 @@ class MergeReduceOp(ReduceOp):
 
         plan, map_op = self.plan, self.map_op
         wid, j = divmod(r, map_op.sorter.r1)
+        if wid not in map_op.sorter.worker_ids:
+            raise ValueError(f"partition {r} belongs to worker {wid}, "
+                             "which this rank does not hold")
         slices, n_total = [], 0
         for g in range(len(map_op.waves)):
             offs = map_op.spill_offsets[(g, wid)]
@@ -231,7 +237,7 @@ class DeviceMergeReduceOp(MergeReduceOp):
 
 def sort_shuffle_job(store: StoreBackend, bucket: str, *, num_workers: int,
                      plan, tracer=None, boundaries=None,
-                     device="cuda") -> ShuffleJob:
+                     device="cuda", mesh=None) -> ShuffleJob:
     """Build the CloudSort ShuffleJob: SortMapOp + MergeReduceOp (or
     DeviceMergeReduceOp, per plan.reduce_merge_impl) over an
     order-preserving range partitioner, sorting on `device` ("cuda"
@@ -239,9 +245,11 @@ def sort_shuffle_job(store: StoreBackend, bucket: str, *, num_workers: int,
     with `job.run(workers=N[, cluster=ClusterPlan(...)])`. `boundaries`
     replaces the equal key split with W*R1-1 explicit reducer boundaries;
     the same values feed the host RangePartitioner and the device
-    routing."""
+    routing. With a `mesh` (launch/mesh.RankMesh) every rank builds the
+    same job and runs it with `job.run()`; the sort runs on the mesh's
+    device and each rank returns the report gathered from all of them."""
     map_op = SortMapOp(plan, num_workers, boundaries=boundaries,
-                       device=device)
+                       device=device, mesh=mesh)
     if getattr(plan, "reduce_merge_impl", "numpy") == "device":
         reduce_op: MergeReduceOp = DeviceMergeReduceOp(plan, map_op)
     else:
@@ -250,7 +258,7 @@ def sort_shuffle_job(store: StoreBackend, bucket: str, *, num_workers: int,
                                    boundaries=boundaries)
     return ShuffleJob(store, bucket, plan=plan, map_op=map_op,
                       reduce_op=reduce_op, partitioner=partitioner,
-                      tracer=tracer)
+                      tracer=tracer, mesh=mesh)
 
 
 __all__ = ["DeviceMergeReduceOp", "MergeReduceOp", "SortMapOp",

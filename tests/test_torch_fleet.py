@@ -16,6 +16,7 @@ FleetPlan and ClaimPool are held to the reference's own unit tests
 (tests/test_elastic.py), run against the port's classes.
 """
 import dataclasses
+import difflib
 import json
 import os
 import threading
@@ -183,13 +184,26 @@ def test_reference_unit_case_on_port(name, monkeypatch):
     getattr(ref_elastic, name)()
 
 
+def _renamed_reference_and_port(rel):
+    with open(os.path.join(REPO, "src", "repro", rel)) as f:
+        want = f.read().replace("repro.", "repro_torch.")
+    with open(os.path.join(REPO, "src", "repro_torch", rel)) as f:
+        return want, f.read()
+
+
 def test_copied_modules_are_the_reference_renamed():
-    for rel in ("shuffle/elastic.py", "shuffle/job.py", "shuffle/runtime.py",
+    for rel in ("shuffle/elastic.py", "shuffle/runtime.py",
                 "shuffle/executor.py"):
-        with open(os.path.join(REPO, "src", "repro", rel)) as f:
-            want = f.read().replace("repro.", "repro_torch.")
-        with open(os.path.join(REPO, "src", "repro_torch", rel)) as f:
-            assert f.read() == want, rel
+        want, got = _renamed_reference_and_port(rel)
+        assert got == want, rel
+    # shuffle/job.py is the renamed reference plus the port's rank path
+    # (a job on a launch/mesh.RankMesh) and nothing else: its diff
+    # against the renamed reference is pinned, line for line.
+    want, got = _renamed_reference_and_port("shuffle/job.py")
+    diff = difflib.unified_diff(want.splitlines(True), got.splitlines(True),
+                                "reference", "port", n=0)
+    with open(os.path.join(REPO, "tests", "shuffle_job_rank_path.diff")) as f:
+        assert "".join(diff) == f.read()
 
 
 # ---------------------------------------------------------------------------
