@@ -83,7 +83,28 @@ Run from the repo root on a machine with one H100. It
      and restarted from a checkpoint (the losses agree); the MoE training
      example (`train.moe_example`) and the serving driver
      (`serve.launch`);
- 16. the other five families, each at its published widths:
+ 16. expert parallelism over gloo rank processes on the one card
+     (launch/mesh.RankMesh with axes data x model, every rank on cuda:0):
+     `moe.ranks.identity`, the sort dispatch at moe.identity's widths
+     over 4 ranks as data 1 x model 4 and data 2 x model 2, each rank
+     holding E/ep experts, routing bit-identical to the batch-axis form
+     on the card and outputs and input gradients within MOE_TOL;
+     `serve.ranks.identity`, qwen2-moe-a2.7b at full width, 2 layers,
+     float32, over 4 ranks against the one-process batch-axis form
+     (prefill logits, 8 greedy tokens); `serve.ranks`, the same model at
+     full width and depth in bfloat16 over 4 ranks (the prefill's sort
+     dispatch over the ranks, each decode step's dispatch summed over
+     them): tokens identical on every rank, per-rank peak memory,
+     prefill and decode ms, the all_to_all, all_gather and psum ms a
+     layer, and how many tokens equal serve.full's; `train.ranks`, one
+     layer at full width in float32 over 4 ranks (2 if the dry run's
+     summed rank peaks exceed TRAIN_RANKS_BUDGET), one step at a peak
+     learning rate of 1e-4 (no warmup) held against the one-process step (loss,
+     global gradient norm, parameters), replicated parameters
+     bit-identical on every rank, then 4 timed steps; `train.moe_example.ranks`, the MoE
+     training example over the reference's data 2 x model 4 mesh (8
+     ranks), 20 steps, losses against the one-process example's;
+ 17. the other five families, each at its published widths:
      `<family>.identity` (card against CPU in float32 from the same
      weights, cut in depth: prefill logits, 8 greedy tokens, one train
      step) and `<family>.serve` (full depth in bfloat16, 4 requests of
@@ -95,7 +116,7 @@ Run from the repo root on a machine with one H100. It
      decode step; then `hybrid.train`, hymba-1.5b at full size, 8 AdamW
      steps of bfloat16 over float32 masters with remat, and
      `hybrid.train.split`, one more step traced;
- 17. the dry run against the card: after each phase that reads
+ 18. the dry run against the card: after each phase that reads
      `max_memory_allocated` (serve.full, train.full, each
      `<family>.serve`, hybrid.train), `dryrun.hold` runs the same window
      (`serve_window`, `train_window`) again on "meta" tensors through
@@ -107,19 +128,19 @@ Run from the repo root on a machine with one H100. It
      the dense bf16 peak); `cost.tco`, core/cost_model.gpu_cloudsort_tco
      at the full run's map and reduce rates; `phase.seconds`, each
      phase's wall seconds. None of this launches a kernel;
- 18. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
+ 19. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
      line (each kernel's launches on the full run, and per phase) and,
      last, the `ok` line.
 
-Each of the phases 5-16 zeroes every kernel's launch count just before
-its runs and reads it just after (a process fleet's children report
-theirs at each phase end), and fails if a kernel of its path never
+Each of the phases 5-17 zeroes every kernel's launch count just before
+its runs and reads it just after (a process fleet's children and the
+rank processes report theirs), and fails if a kernel of its path never
 launched, or, where the path runs none of the four kernels (the
-group-by, the MoE dispatch, serving and training, the families), if one
-did. Then (`<phase>.hold`) it holds each kernel bit-identical to
-its plain version on the card at every shape the phase launched it at
-(the wrappers record their launch shapes; children report theirs too),
-on fresh random inputs.
+group-by, the MoE dispatch, serving and training in one process or over
+ranks, the families), if one did. Then (`<phase>.hold`) it holds each
+kernel bit-identical to its plain version on the card at every shape
+the phase launched it at (the wrappers record their launch shapes;
+children report theirs too), on fresh random inputs.
 
 Every other stdout line is one JSON object. Any failure exits non-zero
 without the `ok` line; so does a machine without a CUDA card, or a
@@ -207,6 +228,13 @@ FAMILY_SERVE_PROMPT = {"hybrid": 1100}  # else SERVE_FULL_PROMPT
 HYBRID_TRAIN_BATCH = (4, 1280)
 HYBRID_TRAIN_STEPS = 8  # one batch repeated
 DRYRUN_TOL = 0.10  # |predicted / measured - 1| of a phase's peak memory
+# expert parallelism over gloo ranks on the one card (slice 10)
+EP_RANKS = 4  # rank processes of the 4-rank phases
+MOE_RANK_LAYOUTS = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
+TRAIN_RANKS_BUDGET = 70e9  # the dry run's summed rank peaks must fit it
+TRAIN_RANKS_MORE_STEPS = 4  # timed steps after the held one
+TRAIN_GRAD_NORM_RTOL = 1e-5  # a rank's global gradient norm vs one process
+MOE_EXAMPLE_RANKS_STEPS = 20
 BF16_DENSE_PEAK = 989e12  # H100 SXM data sheet: dense bf16 tensor FLOP/s
 DEVICE = "cuda"
 BUCKET = "cloudsort"
@@ -1871,7 +1899,7 @@ def phase_serve_full(wrappers, costs):
         flops=meta_flops(model.prefill, model.abstract_params(),
                          to_meta(prompt)),
         seconds=stats["prefill_s"])
-    return launches
+    return launches, gen
 
 
 def train_config(**over):
@@ -2183,6 +2211,605 @@ def phase_serve_launch(wrappers, log):
         raise AssertionError(f"serve.launch: tokens in range {in_range}, "
                              f"shape {tuple(toks.shape)}")
     require_none_launched("serve.launch", launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism over gloo ranks on the one card (slice 10)
+# ---------------------------------------------------------------------------
+
+
+#: The settings the rank processes take from the parent (a spawned rank
+#: imports this script afresh, so a rehearsal's overrides reach it only
+#: through these).
+RANK_SETTINGS = ("DEVICE", "SEED", "MOE_SHAPE", "MOE_CAPACITY_FACTOR",
+                 "SERVE_REQUESTS", "SERVE_IDENTITY_PROMPT",
+                 "SERVE_IDENTITY_NEW", "SERVE_FULL_PROMPT", "SERVE_FULL_NEW",
+                 "TRAIN_IDENTITY_BATCH", "TRAIN_PARAM_RTOL",
+                 "TRAIN_PARAM_ATOL", "TRAIN_RANKS_MORE_STEPS")
+
+
+def train_ranks_tcfg():
+    """train.ranks' training config: no warmup, so Adam's first step moves
+    every parameter with a gradient by about the peak lr, five times
+    TRAIN_PARAM_ATOL: a zero or wrongly signed update from the ranks'
+    backward falls outside the parameters' bound, and a wrongly scaled
+    gradient outside the norm's. The lr is 1e-4, not the default 3e-4:
+    Adam divides by |g| + eps, so elements whose gradient is near eps
+    turn the ranks' rounding into update differences that grow with the
+    lr, and at 3e-4 they came within a tenth of the bound."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    return TrainConfig(opt=OptConfig(peak_lr=1e-4, warmup_steps=1))
+
+
+def rank_settings():
+    return {k: globals()[k] for k in RANK_SETTINGS}
+
+
+def rank_device():
+    """The card of every rank of the EP phases: the one card, named
+    (gloo ranks share it), or the CPU in a rehearsal."""
+    return "cpu" if DEVICE == "cpu" else f"{DEVICE}:0"
+
+
+def ep_rank_mesh(rank, world, store, axes):
+    from repro_torch.launch.mesh import init_rank_mesh
+
+    return init_rank_mesh(world, backend="gloo", device=rank_device(),
+                          rank=rank, world=world, store_path=store,
+                          axes=axes)
+
+
+def own_launches():
+    """This process's launch count of each of the four kernels."""
+    from repro_torch.kernels.bitonic_sort import bitonic_sort_blocks
+    from repro_torch.kernels.kway_merge import merge_sorted_pairs_indexed
+    from repro_torch.kernels.merge_sorted import merge_sorted_pairs
+    from repro_torch.kernels.range_partition import partition_offsets_blocks
+
+    return {fn.__name__: fn.launches for fn in (
+        bitonic_sort_blocks, partition_offsets_blocks, merge_sorted_pairs,
+        merge_sorted_pairs_indexed)}
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def moe_case(device):
+    """moe.identity's inputs at MOE_SHAPE on `device`: tokens, router
+    logits and a probe drawn with numpy from SEED, the expert bank from a
+    generator seeded SEED on the device (every rank draws the same)."""
+    from repro_torch.models import layers
+
+    e, d = MOE_SHAPE["experts"], MOE_SHAPE["d"]
+    f, t = MOE_SHAPE["d_ff"], MOE_SHAPE["tokens"]
+    rng = np.random.default_rng(SEED)
+    arrays = {"x": rng.normal(size=(t, d)), "logits": rng.normal(size=(t, e)),
+              "probe": rng.normal(size=(t, d))}
+    case = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+            for k, v in arrays.items()}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for name, shape, scale in (("w_gate", (e, d, f), d**-0.5),
+                               ("w_up", (e, d, f), d**-0.5),
+                               ("w_down", (e, f, d), f**-0.5)):
+        case[name] = layers.uniform_init(shape, gen, scale).to(device)
+    return case
+
+
+def moe_grads(fn, case, rows, experts, **kw):
+    """fn's output on case's rows, routed by route_topk, and the
+    gradients of sum(out * probe) for the tokens and the router logits;
+    the routing record of the sort."""
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.models.moe import expert_fn
+
+    x = case["x"][rows].clone().requires_grad_()
+    logits = case["logits"][rows].clone().requires_grad_()
+    prm = {n: p.detach().clone().requires_grad_() for n, p in experts.items()}
+    w, ids = md.route_topk(logits, MOE_SHAPE["top_k"])
+    routing = {}
+    out = fn(x, w, ids, prm, cfg=md.MoeDispatchConfig(
+        MOE_SHAPE["experts"], MOE_SHAPE["top_k"], MOE_CAPACITY_FACTOR),
+        expert_fn=expert_fn, routing=routing, **kw)
+    (out * case["probe"][rows]).sum().backward()
+    return {"out": out.detach().cpu(), "x": x.grad.cpu(),
+            "logits": logits.grad.cpu(), "ids": ids.cpu(),
+            "routing": {k: v if isinstance(v, int) else v.cpu()
+                        for k, v in routing.items()}}
+
+
+def moe_rank_dispatch(mesh):
+    """moe.ranks.identity on one rank: its rows of the (g, j) layout, its
+    E/ep experts, the sort dispatch over the ranks (TF32 off)."""
+    from repro_torch.core import moe_dispatch as md
+
+    dp, ep = mesh.size_of("data"), mesh.size_of("model")
+    i = mesh.index_of("data") * ep + mesh.index_of("model")
+    case = moe_case(mesh.device)
+    t = MOE_SHAPE["tokens"] // (dp * ep)
+    el = MOE_SHAPE["experts"] // ep
+    j = mesh.index_of("model")
+    experts = {n: case[n][j * el:(j + 1) * el] for n in
+               ("w_gate", "w_up", "w_down")}
+    sync(mesh.device)
+    t0 = time.perf_counter()
+    got = moe_grads(md.sort_dispatch_ranks, case, slice(i * t, (i + 1) * t),
+                    experts, mesh=mesh)
+    got["seconds"] = time.perf_counter() - t0
+    return got
+
+
+def serve_tokens(model, params, tokens, new, device, stats=None,
+                 mesh=None):
+    """Prefill logits and `new` greedy tokens of a batch of prompts; on a
+    rank of `mesh`, the collectives of generate (its own prefill and the
+    decode steps) in the mesh's exchange log."""
+    from repro_torch.serve.engine import ServeConfig, generate
+
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+    logits, _ = model.prefill(params, batch)
+    if mesh is not None:
+        mesh.record_exchanges()
+    gen, steps = generate(model, params, batch,
+                          ServeConfig(max_new_tokens=new), stats=stats)
+    return logits.float().cpu(), gen.cpu()
+
+
+def exchange_summary(log, layers):
+    """A rank's exchange log of one generate: the prefill's all_to_alls
+    (3 a layer: expert ids, tokens, outputs) and all_gather (1 a layer),
+    each decode step's psum (1 a layer): ms a layer (median, min, max),
+    bytes a call."""
+    out = {}
+    for key, whats, per_layer in (("a2a", ("moe.ids", "moe.x", "moe.y"), 3),
+                                  ("gather", ("gather",), 1),
+                                  ("psum", ("moe.psum",), 1)):
+        calls = [x for x in log if x["what"] in whats]
+        ms = [sum(x["ms"] for x in calls[i:i + per_layer])
+              for i in range(0, len(calls), per_layer)]
+        out[key] = {"calls": len(calls), "ms_a_layer_median":
+                    statistics.median(ms) if ms else None,
+                    "ms_a_layer_min": min(ms) if ms else None,
+                    "ms_a_layer_max": max(ms) if ms else None,
+                    "bytes_a_layer": sum(x["bytes"] for x in calls)
+                    / max(len(ms), 1),
+                    "clock": sorted({x["clock"] for x in calls})}
+    if out["gather"]["calls"] != layers:
+        raise AssertionError(f"serve.ranks: {out['gather']['calls']} "
+                             f"gathers in the prefill of {layers} layers")
+    return out
+
+
+def ep4_body(rank, world, store, settings, identity_cfg, full_cfg):
+    """The 4-rank phases on one rank, in one spawn: moe.ranks.identity on
+    each layout of MOE_RANK_LAYOUTS, then on data 1 x model 4
+    serve.ranks.identity (`identity_cfg`: 2 layers, float32) and
+    serve.ranks (`full_cfg`: full depth, bfloat16). Every rank checks
+    that the ranks' tokens agree (an all_gather of them)."""
+    from repro_torch.models import api as mapi
+
+    globals().update(settings)
+    dev = torch.device(rank_device())
+    out = {"launches": {}}
+    with full_float32():
+        for n, axes in enumerate(MOE_RANK_LAYOUTS):
+            with ep_rank_mesh(rank, world, f"{store}.moe{n}", axes) as mesh:
+                out[f"moe{n}"] = moe_rank_dispatch(mesh)
+    out["launches"]["moe"] = own_launches()
+    axes = {"data": 1, "model": world}
+    with ep_rank_mesh(rank, world, f"{store}.serve", axes) as mesh:
+        cfg = identity_cfg
+        model = mapi.build(cfg, mesh=mesh)
+        before = own_launches()
+        with full_float32():
+            params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+            t0 = time.perf_counter()
+            logits, gen = serve_tokens(
+                model, params, prompts(cfg, SERVE_IDENTITY_PROMPT),
+                SERVE_IDENTITY_NEW, dev)
+            out["serve.identity"] = {"logits": logits, "tokens": gen,
+                                     "seconds": time.perf_counter() - t0}
+        del params
+        out["launches"]["serve.identity"] = {
+            k: v - before[k] for k, v in own_launches().items()}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = own_launches()
+        cfg = full_cfg
+        model = mapi.build(cfg, mesh=mesh)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        sync(dev)
+        init_s = time.perf_counter() - t0
+        stats = {}
+        logits, gen = serve_tokens(model, params,
+                                   prompts(cfg, SERVE_FULL_PROMPT),
+                                   SERVE_FULL_NEW, dev, stats, mesh)
+        log = mesh.exchange_log()
+        mesh.exchanges = None
+        every = mesh.all_gather_object(gen)
+        if any(not torch.equal(g, gen) for g in every):
+            raise AssertionError(f"serve.ranks: rank {rank}'s tokens differ "
+                                 "from another rank's")
+        count = sum(p.numel() for p in params.parameters())
+        out["serve.ranks"] = {
+            "tokens": gen, "finite": bool(torch.isfinite(logits).all()),
+            "init_s": init_s, "prefill_s": stats["prefill_s"],
+            "decode_s": stats["decode_s"], "local_params": count,
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters()),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None),
+            "exchanges": exchange_summary(log, cfg.n_layers)}
+        out["launches"]["serve.ranks"] = {
+            k: v - before[k] for k, v in own_launches().items()}
+        del params
+    return out
+
+
+def phase_ep_ranks(wrappers, log, serve_full_tokens):
+    """moe.ranks.identity, serve.ranks.identity and serve.ranks: the
+    one-process oracles on the card first (the batch-axis forms), then
+    EP_RANKS gloo rank processes on the card (ep4_body), then the holds.
+    Returns the phases' launches (the parent's plus the ranks')."""
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import api as mapi
+
+    zero_launches(wrappers)
+    identity_cfg = serve_config(n_layers=SERVE_IDENTITY_LAYERS,
+                                dtype="float32")
+    # ---- the oracles: the batch-axis forms in this process ----
+    want = {}
+    with full_float32():
+        case = moe_case(DEVICE)
+        experts = {n: case[n] for n in ("w_gate", "w_up", "w_down")}
+        for n, axes in enumerate(MOE_RANK_LAYOUTS):
+            want[f"moe{n}"] = moe_grads(md.sort_dispatch, case, slice(None),
+                                        experts, ep_size=axes["model"],
+                                        dp=axes["data"])
+        del case, experts
+        cfg = identity_cfg
+        model = mapi.build(cfg, ep_size=EP_RANKS, dp=1)
+        params = model.init(generator(DEVICE))
+        want["serve.identity"] = serve_tokens(
+            model, params, prompts(cfg, SERVE_IDENTITY_PROMPT),
+            SERVE_IDENTITY_NEW, DEVICE)
+        del params
+    torch.cuda.empty_cache()
+    # ---- the ranks ----
+    t0 = time.perf_counter()
+    with stdout_to(log):
+        ranks = spawn_ranks(ep4_body, EP_RANKS, rank_settings(),
+                            identity_cfg, serve_config())
+    spawn_s = time.perf_counter() - t0
+    # the oracles' launches (this process's) count with the first phase
+    by_phase = {"moe.ranks.identity": read_launches(
+        wrappers, [r["launches"]["moe"] for r in ranks])}
+    for phase, key in (("serve.ranks.identity", "serve.identity"),
+                       ("serve.ranks", "serve.ranks")):
+        by_phase[phase] = {n: sum(r["launches"][key][n] for r in ranks)
+                           for n in wrappers}
+    # ---- moe.ranks.identity ----
+    for n, axes in enumerate(MOE_RANK_LAYOUTS):
+        dp, ep = axes["data"], axes["model"]
+        ref = want[f"moe{n}"]
+        got = [r[f"moe{n}"] for r in ranks]  # rank g*ep + j: shard g*ep + j
+        ids_same = torch.equal(torch.cat([g["ids"] for g in got]), ref["ids"])
+        routing_same = all(
+            g["routing"]["cap"] == ref["routing"]["cap"]
+            and g["routing"]["ecap"] == ref["routing"]["ecap"]
+            and all(torch.equal(g["routing"][k][0], ref["routing"][k][i])
+                    for k in ("send_e", "recv_e", "keep", "rank"))
+            for i, g in enumerate(got))
+        errs = {k: float((torch.cat([g[k] for g in got]) - ref[k]).abs()
+                         .nan_to_num(nan=float("inf")).max())
+                for k in ("out", "x", "logits")}
+        emit(phase="moe.ranks.identity", ranks=EP_RANKS, mesh=axes,
+             backend="gloo", **MOE_SHAPE,
+             capacity_factor=MOE_CAPACITY_FACTOR, tol=MOE_TOL,
+             ids_identical=ids_same, routing_identical=routing_same,
+             max_abs_diff_vs_batch_axis=errs,
+             out_abs_max=float(ref["out"].abs().max()),
+             rank_seconds=[g["seconds"] for g in got],
+             launches=by_phase["moe.ranks.identity"], card=SMI)
+        if not (ids_same and routing_same) or max(errs.values()) > MOE_TOL:
+            raise AssertionError(f"moe.ranks.identity {axes}: ids "
+                                 f"{ids_same}, routing {routing_same}, "
+                                 f"max |diff| {errs} (tol {MOE_TOL})")
+    require_none_launched("moe.ranks.identity",
+                          by_phase["moe.ranks.identity"])
+    # ---- serve.ranks.identity ----
+    logits, gen = want["serve.identity"]
+    errs = [float((r["serve.identity"]["logits"] - logits).abs()
+                  .nan_to_num(nan=float("inf")).max()) for r in ranks]
+    same = all(torch.equal(r["serve.identity"]["tokens"], gen)
+               for r in ranks)
+    emit(phase="serve.ranks.identity", arch=SERVE_ARCH,
+         layers=SERVE_IDENTITY_LAYERS, dtype="float32", ranks=EP_RANKS,
+         mesh={"data": 1, "model": EP_RANKS}, requests=SERVE_REQUESTS,
+         prompt=SERVE_IDENTITY_PROMPT, new_tokens=SERVE_IDENTITY_NEW,
+         prefill_logits_max_abs_diff=errs, tol=SERVE_TOL,
+         tokens_identical=same, rank_seconds=[
+             r["serve.identity"]["seconds"] for r in ranks],
+         launches=by_phase["serve.ranks.identity"], card=SMI)
+    if max(errs) > SERVE_TOL or not same:
+        raise AssertionError(f"serve.ranks.identity: prefill logits differ "
+                             f"by {errs} (tol {SERVE_TOL}), tokens "
+                             f"identical {same}")
+    require_none_launched("serve.ranks.identity",
+                          by_phase["serve.ranks.identity"])
+    # ---- serve.ranks ----
+    runs = [r["serve.ranks"] for r in ranks]
+    gen = runs[0]["tokens"]
+    identical = all(torch.equal(r["tokens"], gen) for r in runs)
+    finite = all(r["finite"] for r in runs)
+    cfg = serve_config()
+    equal_full = int((gen == serve_full_tokens).sum())
+    rows = []
+    for r in runs:
+        dec = r["decode_s"]
+        wall = r["prefill_s"] + sum(dec)
+        rows.append({
+            "max_memory_allocated": r["max_memory_allocated"],
+            "param_bytes": r["param_bytes"], "init_s": r["init_s"],
+            "prefill_ms": r["prefill_s"] * 1e3,
+            "decode_ms_median": statistics.median(dec) * 1e3,
+            "decode_ms_min": min(dec) * 1e3, "decode_ms_max": max(dec) * 1e3,
+            "tokens_per_s": SERVE_REQUESTS * len(dec) / wall,
+            "exchanges": r["exchanges"]})
+    emit(phase="serve.ranks", arch=SERVE_ARCH, layers=cfg.n_layers,
+         dtype=cfg.dtype, ranks=EP_RANKS, backend="gloo",
+         mesh={"data": 1, "model": EP_RANKS}, requests=SERVE_REQUESTS,
+         prompt=SERVE_FULL_PROMPT, new_tokens=SERVE_FULL_NEW,
+         tokens_identical_on_every_rank=identical, logits_finite=finite,
+         tokens_equal_to_serve_full=equal_full,
+         tokens=int(serve_full_tokens.numel()), per_rank=rows,
+         spawn_s=spawn_s, sample_tokens=gen[0, :8].tolist(),
+         clock=("device: CUDA events on each rank's stream around the gloo "
+                "collective, which stages through host memory"),
+         launches=by_phase["serve.ranks"], card=SMI)
+    if not (identical and finite and tuple(gen.shape) == (
+            SERVE_REQUESTS, SERVE_FULL_NEW)):
+        raise AssertionError(f"serve.ranks: tokens identical on every rank "
+                             f"{identical}, finite {finite}, shape "
+                             f"{tuple(gen.shape)}")
+    require_none_launched("serve.ranks", by_phase["serve.ranks"])
+    return by_phase
+
+
+def train_ranks_window(model, mesh, tcfg, batch, device):
+    """What one rank of train.ranks holds at its peak: the training state
+    drawn on `device` and one step on `batch`."""
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    state = init_train_state(model, generator(device), tcfg)
+    return make_train_step(model, tcfg, mesh=mesh)(state, batch)
+
+
+def train_ranks_layout(cfg):
+    """train.ranks' mesh: data 1 x model 4 if the dry run's peaks of the
+    four ranks (one rank's step on "meta", launch/dryrun.peak_bytes; the
+    ranks' shapes are the same) sum under TRAIN_RANKS_BUDGET, else data 1
+    x model 2. Returns (model size, {size: predicted rank peak})."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import layout_mesh
+    from repro_torch.models import api as mapi
+
+    batch = to_meta(train_batch(cfg, TRAIN_IDENTITY_BATCH, "cpu"))
+    peaks = {}
+    for ep in (4, 2):
+        mesh = layout_mesh({"data": 1, "model": ep}, 0)
+        peaks[ep] = dryrun.peak_bytes(
+            train_ranks_window, mapi.build(cfg, mesh=mesh), mesh,
+            train_ranks_tcfg(), batch, "meta")
+        if ep * peaks[ep] < TRAIN_RANKS_BUDGET:
+            return ep, peaks
+    raise AssertionError(f"train.ranks: no layout fits {TRAIN_RANKS_BUDGET} "
+                         f"B: predicted rank peaks {peaks}")
+
+
+def train_ranks_body(rank, world, store, settings, cfg, ref_path):
+    """train.ranks on one rank: the state drawn as the one-process run
+    drew it (each rank keeps its experts), one step held against the
+    one-process step's parameters (read from `ref_path`), the replicated
+    parameters' digests compared across ranks, then TRAIN_RANKS_MORE_STEPS
+    timed steps. The peak memory of the first window (state and step,
+    what the dry run predicts) and of the timed steps, apart: the hold's
+    copies of the reference are in neither."""
+    import hashlib
+
+    from repro_torch.launch.sharding import rank_split
+    from repro_torch.models import api as mapi
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    globals().update(settings)
+    dev = torch.device(rank_device())
+    with ep_rank_mesh(rank, world, store, {"data": 1, "model": world}) \
+            as mesh, full_float32():
+        model = mapi.build(cfg, mesh=mesh)
+        tcfg = train_ranks_tcfg()
+        batch = train_batch(cfg, TRAIN_IDENTITY_BATCH, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        state = init_train_state(model, generator(dev), tcfg)
+        step = make_train_step(model, tcfg, mesh=mesh)
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(dev)
+        first_s = time.perf_counter() - t0
+        cuda = dev.type == "cuda"
+        # the window the dry run predicts: the state drawn, one step
+        window_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        metrics = {k: float(v) for k, v in m.items()}
+        ref = torch.load(ref_path, mmap=True, map_location="cpu")
+        split = rank_split(state["params"])
+        j = mesh.index_of("model")
+        diff, excess, digests = 0.0, -1.0, {}
+        for name, p in state["params"].named_parameters():
+            want = ref[name]
+            if name in split:
+                k = p.shape[0]
+                want = want[j * k:(j + 1) * k]
+            want = want.to(dev)
+            d = (p.detach() - want).abs().nan_to_num(nan=float("inf"))
+            diff = max(diff, float(d.max()))
+            excess = max(excess, float((d - TRAIN_PARAM_ATOL
+                                        - TRAIN_PARAM_RTOL * want.abs())
+                                       .max()))
+            if name not in split:
+                digests[name] = hashlib.sha256(
+                    p.detach().cpu().numpy().tobytes()).hexdigest()
+        del ref, want
+        every = mesh.all_gather_object(digests)
+        replicas_identical = all(e == digests for e in every)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        step_s = []
+        for _ in range(TRAIN_RANKS_MORE_STEPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+        return {"metrics": metrics, "params_max_abs_diff": diff,
+                "params_worst_excess": excess,
+                "replicas_identical": replicas_identical,
+                "first_step_s": first_s, "step_s": step_s,
+                "losses": [metrics["loss"], float(m["loss"])],
+                "local_params": sum(p.numel() for p in
+                                    state["params"].parameters()),
+                "window_max_memory_allocated": window_peak,
+                "steps_max_memory_allocated": (
+                    torch.cuda.max_memory_allocated(dev) if cuda else None),
+                "launches": own_launches()}
+
+
+def phase_train_ranks(wrappers, log):
+    """train.ranks: qwen2-moe-a2.7b at full width, TRAIN_IDENTITY_LAYERS
+    deep, float32 masters, the sort dispatch, over gloo ranks on the card
+    (data 1 x model 4, or 2 if the dry run says 4 would not fit): one step
+    at the peak lr held against the one-process batch-axis step (loss
+    within TRAIN_LOSS_TOL, the global gradient norm within
+    TRAIN_GRAD_NORM_RTOL, parameters within train.identity's bounds), the
+    replicated parameters bit-identical on every rank, then
+    TRAIN_RANKS_MORE_STEPS timed steps."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import api as mapi
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = train_config(n_layers=TRAIN_IDENTITY_LAYERS, dtype="float32",
+                       remat=False, dispatch_impl="sort")
+    t0 = time.perf_counter()
+    ep, peaks = train_ranks_layout(cfg)
+    dry_s = time.perf_counter() - t0
+    model = mapi.build(cfg, ep_size=ep, dp=1)
+    tcfg = train_ranks_tcfg()
+    zero_launches(wrappers)
+    ref_path = os.path.join(WORK_DIR, "train-ranks-ref.pt")
+    with full_float32():
+        state = init_train_state(model, generator(DEVICE), tcfg)
+        state, m = make_train_step(model, tcfg)(
+            state, train_batch(cfg, TRAIN_IDENTITY_BATCH, DEVICE))
+        ref_metrics = {k: float(v) for k, v in m.items()}
+        torch.save({n: p.detach().cpu() for n, p in
+                    state["params"].named_parameters()}, ref_path)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    del state
+    torch.cuda.empty_cache()
+    try:
+        with stdout_to(log):
+            ranks = spawn_ranks(train_ranks_body, ep, rank_settings(), cfg,
+                                ref_path)
+    finally:
+        os.remove(ref_path)
+    launches = read_launches(wrappers, [r["launches"] for r in ranks])
+    loss_diff = max(abs(r["metrics"]["loss"] - ref_metrics["loss"])
+                    for r in ranks)
+    gn_rel = max(abs(r["metrics"]["grad_norm"] - ref_metrics["grad_norm"])
+                 for r in ranks) / abs(ref_metrics["grad_norm"])
+    excess = max(r["params_worst_excess"] for r in ranks)
+    replicas = all(r["replicas_identical"] for r in ranks)
+    emit(phase="train.ranks", arch=TRAIN_ARCH, layers=cfg.n_layers,
+         params=n_params, dtype=cfg.dtype, batch=list(TRAIN_IDENTITY_BATCH),
+         ranks=ep, backend="gloo", mesh={"data": 1, "model": ep},
+         predicted_rank_peak_bytes=peaks, budget_bytes=TRAIN_RANKS_BUDGET,
+         dryrun_s=dry_s, metrics=[r["metrics"] for r in ranks],
+         one_process_metrics=ref_metrics, loss_max_abs_diff=loss_diff,
+         loss_tol=TRAIN_LOSS_TOL, grad_norm_rel_diff=gn_rel,
+         grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
+         params_max_abs_diff=max(r["params_max_abs_diff"] for r in ranks),
+         params_tol=[TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL],
+         params_worst_excess=excess, replicas_identical=replicas,
+         first_step_ms=[r["first_step_s"] * 1e3 for r in ranks],
+         step_ms_median=[statistics.median(r["step_s"]) * 1e3
+                         for r in ranks],
+         step_ms_min=[min(r["step_s"]) * 1e3 for r in ranks],
+         step_ms_max=[max(r["step_s"]) * 1e3 for r in ranks],
+         losses=[r["losses"] for r in ranks],
+         local_params=[r["local_params"] for r in ranks],
+         window_max_memory_allocated=[r["window_max_memory_allocated"]
+                                      for r in ranks],
+         window_predicted_over_measured=[
+             peaks[ep] / r["window_max_memory_allocated"] for r in ranks
+             if r["window_max_memory_allocated"]],
+         steps_max_memory_allocated=[r["steps_max_memory_allocated"]
+                                     for r in ranks],
+         launches=launches, card=SMI)
+    if not (loss_diff <= TRAIN_LOSS_TOL and gn_rel <= TRAIN_GRAD_NORM_RTOL
+            and excess <= 0 and replicas):
+        raise AssertionError(f"train.ranks: loss differs by {loss_diff}, "
+                             f"the gradient norm by {gn_rel} (relative), "
+                             f"parameters exceed their bound by {excess}, "
+                             f"replicas identical {replicas}")
+    if not all(np.isfinite(r["losses"]).all() for r in ranks):
+        raise AssertionError(f"train.ranks: losses "
+                             f"{[r['losses'] for r in ranks]}")
+    require_none_launched("train.ranks", launches)
+    return launches
+
+
+def phase_train_moe_example_ranks(wrappers, log):
+    """The MoE training example over the reference's own mesh, data 2 x
+    model 4 = 8 gloo ranks on the card, MOE_EXAMPLE_RANKS_STEPS steps,
+    each step's loss within TRAIN_LOSS_TOL of the one-process example's
+    (the mesh as a batch axis) on the same card."""
+    from repro_torch.examples import train_moe
+
+    ck = os.path.join(WORK_DIR, "ckpt-moe-ranks")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--steps", str(MOE_EXAMPLE_RANKS_STEPS), "--ckpt-dir", ck]
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    with stdout_to(log):
+        one = train_moe.main(argv + ["--device", DEVICE])
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranked = train_moe.main(argv + ["--device", rank_device(),
+                                        "--ranks", "8", "--backend", "gloo"])
+    ranked_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    shutil.rmtree(ck, ignore_errors=True)
+    diffs = [abs(a - b) for a, b in zip(ranked["losses"], one["losses"])]
+    emit(phase="train.moe_example.ranks", steps=len(ranked["losses"]),
+         ranks=ranked["ranks"], mesh=ranked["mesh"], backend="gloo",
+         params=ranked["params"], losses=ranked["losses"],
+         one_process_losses=one["losses"], loss_max_abs_diff=max(diffs),
+         loss_tol=TRAIN_LOSS_TOL, tokens_per_s=ranked["tokens_per_s"],
+         one_process_tokens_per_s=one["tokens_per_s"], seconds=ranked_s,
+         one_process_seconds=one_s, launches=launches, card=SMI)
+    if len(diffs) != MOE_EXAMPLE_RANKS_STEPS or max(diffs) > TRAIN_LOSS_TOL \
+            or not all(np.isfinite(ranked["losses"])):
+        raise AssertionError(f"train.moe_example.ranks: losses differ by "
+                             f"up to {max(diffs)} (tol {TRAIN_LOSS_TOL})")
+    require_none_launched("train.moe_example.ranks", launches)
     return launches
 
 
@@ -2646,8 +3273,8 @@ def run(log):
     # ---- 14. serving qwen2-moe-a2.7b ----
     costs = {}
     timed("serve.identity", phase_serve_identity, wrappers)
-    by_phase["serve"] = timed("serve.full", phase_serve_full, wrappers,
-                              costs)
+    by_phase["serve"], serve_full_tokens = timed(
+        "serve.full", phase_serve_full, wrappers, costs)
 
     # ---- 15. training qwen2-moe-a2.7b and tinyllama-1.1b, the drivers ----
     by_phase["train.identity"] = timed("train.identity",
@@ -2661,7 +3288,16 @@ def run(log):
     by_phase["serve.launch"] = timed("serve.launch", phase_serve_launch,
                                      wrappers, log)
 
-    # ---- 16. the other families: vlm, mla, ssm, hybrid, encdec ----
+    # ---- 16. expert parallelism: gloo ranks on the one card ----
+    by_phase.update(timed("ep.ranks", phase_ep_ranks, wrappers, log,
+                          serve_full_tokens))
+    by_phase["train.ranks"] = timed("train.ranks", phase_train_ranks,
+                                    wrappers, log)
+    by_phase["train.moe_example.ranks"] = timed(
+        "train.moe_example.ranks", phase_train_moe_example_ranks, wrappers,
+        log)
+
+    # ---- 17. the other families: vlm, mla, ssm, hybrid, encdec ----
     for family in FAMILY_ARCHS:
         by_phase[f"{family}.identity"] = timed(
             f"{family}.identity", phase_family_identity, family, wrappers)
@@ -2671,7 +3307,7 @@ def run(log):
                                      wrappers, costs)
     emit_cost_flops(costs)
 
-    # ---- 18. the kernels line, then the ok line ----
+    # ---- 19. the kernels line, then the ok line ----
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_phase"] = {p: c[row["name"]]

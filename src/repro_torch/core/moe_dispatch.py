@@ -1,4 +1,5 @@
-"""MoE token->expert dispatch as an exoshuffle, with the mesh as a batch axis.
+"""MoE token->expert dispatch as an exoshuffle, over ranks or with the mesh
+as a batch axis.
 
 Twin of src/repro/core/moe_dispatch.py. Token routing in expert-parallel
 MoE *is* the paper's shuffle with expert-id as the sort key: map (sort
@@ -7,13 +8,28 @@ shuffle (all_to_all), merge (group per local expert), compute, and an
 inverse shuffle home. Two implementations:
 
   - "sort"   : that pipeline. The reference runs it per device under
-               shard_map over a (data, model) mesh; here the dp x ep
-               shards are one leading batch axis of every tensor, the
-               tiled all_to_all over the EP axis is a transpose of the
-               (ep_src, ep_dst) axes, and ep_size=1 is the single-card
-               path (the exchange is the identity).
+               shard_map over a (data, model) mesh. Here it runs in one
+               of two forms:
+                 * per rank (`sort_dispatch_ranks`, the reference's
+                   sort_dispatch_shard): a rank of a launch/mesh.RankMesh
+                   holds its own tokens and only its E/ep experts, and
+                   the tiled all_to_all runs over its "model" subgroup
+                   (core/collectives.py);
+                 * as a batch axis (`sort_dispatch`): the dp x ep shards
+                   are one leading batch axis of every tensor in one
+                   process, the all_to_all a transpose of the (ep_src,
+                   ep_dst) axes, and ep_size=1 the single-card path (the
+                   exchange is the identity). This form is the rank
+                   form's oracle in the tests.
+               Both run one pipeline (`_pipeline`): only the exchange,
+               the owner of each shard's experts and the experts held
+               differ.
   - "onehot" : GShard/Switch-style dense dispatch einsums with a (T, E, C)
                one-hot tensor — the classical baseline.
+
+The decode dispatch (`ep_replicated_ranks`, `ep_replicated`) replicates
+the few decode tokens over the EP shards instead and sums the partial
+outputs (the reference's psum over "model").
 
 Both drop tokens over expert capacity (standard capacity-factor semantics).
 
@@ -31,6 +47,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.collectives import all_to_all_tiled, psum, psum_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +110,7 @@ def onehot_dispatch_combine(x, weights, ids, *, num_experts: int,
 
 
 # ---------------------------------------------------------------------------
-# "sort" implementation (the exoshuffle pipeline), shards as a batch axis
+# "sort" implementation (the exoshuffle pipeline)
 # ---------------------------------------------------------------------------
 
 
@@ -104,9 +122,10 @@ def _all_to_all(t: torch.Tensor, dp: int, ep: int) -> torch.Tensor:
             .reshape(dp * ep, ep, *rest))
 
 
-def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
-                  expert_fn, ep_size: int = 1, dp: int = 1):
-    """The exoshuffle dispatch for all dp x ep_size shards at once.
+def _pipeline(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
+              expert_fn, ep: int, s: int, banks: int, exchange, first,
+              routing: dict | None):
+    """The exoshuffle dispatch of the `s` shards this process holds.
 
     map:       sort each shard's (expert_id, slot) pairs by expert id
     partition: count pairs per owner shard (searchsorted at shard bounds)
@@ -114,15 +133,15 @@ def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
     merge:     regroup arrivals per local expert (second small sort)
     reduce:    batched expert FFN; then the whole pipeline reverses.
 
-    x: (T, d) tokens, shard (g, j) holding rows [(g*ep + j)*t, +t) with
-    t = T / (dp*ep) — the reference's P(("data", "model")) layout;
-    weights/ids: (T, K); expert_params: pytree whose leaves have leading
-    axis E (all experts; EP shard j owns [j*E_local, (j+1)*E_local)).
-    expert_fn(params, xin) maps (E, C, d) -> (E, C, d_out). Returns
-    (T, d_out), in x's dtype.
+    x: (T, d), shard i holding rows [i*t, (i+1)*t), t = T / s; ep: EP
+    shards in all; `exchange(blocks, what)` is the tiled all_to_all of
+    (s, ep, cap, ...) blocks; `first` (s,) int64 is the first expert id
+    of each shard's own bank; expert_params' leaves hold the banks of
+    `banks` EP shards (ep in one process, 1 on a rank): leading axis
+    banks * E/ep. Capacities come from the shard's t. `routing`, a dict,
+    receives the routing: cap, ecap and (s, ...) send_e, recv_e, keep,
+    rank.
     """
-    ep = ep_size
-    s = dp * ep
     n_tok, d = x.shape
     k = ids.shape[-1]
     e = cfg.num_experts
@@ -163,14 +182,13 @@ def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
     send_w = torch.where(valid, flat_w.gather(1, slot_clip), 0.0)
 
     # --- shuffle -------------------------------------------------------------
-    recv_e = _all_to_all(send_e.reshape(s, ep, cap), dp, ep)
-    recv_x = _all_to_all(send_x.reshape(s, ep, cap, d), dp, ep)
+    recv_e = exchange(send_e.reshape(s, ep, cap), "moe.ids")
+    recv_x = exchange(send_x.reshape(s, ep, cap, d), "moe.x")
 
     # --- merge: regroup arrivals per local expert ----------------------------
     m = ep * cap
     ge, gperm = torch.sort(recv_e.reshape(s, m), dim=-1, stable=True)
     rx = recv_x.reshape(s, m, d)
-    first = (torch.arange(s, device=dev) % ep) * e_local  # (S,)
     local_bounds = first[:, None] + torch.arange(e_local, device=dev)
     estarts = torch.searchsorted(ge, local_bounds, side="left")
     # rank of each sorted arrival within its expert queue
@@ -181,6 +199,9 @@ def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
     # pairs back); the capacity factor absorbs routing imbalance.
     ecap = max(_round_up(tk / e_local * cfg.capacity_factor, 8), 8)
     keep = (rank < ecap) & (ge < e)  # drop overflow + sentinels
+    if routing is not None:
+        routing.update(cap=cap, ecap=ecap, send_e=send_e,
+                       recv_e=recv_e.reshape(s, m), keep=keep, rank=rank)
 
     # Scatter the arrivals into (S, E_local, ecap + 1, d). The reference
     # gives dropped pairs the out-of-range rank ecap and lets mode="drop"
@@ -196,11 +217,13 @@ def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
     exp_in[shard, local_eid, torch.where(keep, rank, ecap)] = arrived
     exp_in = exp_in[:, :, :ecap]
 
-    # --- reduce: one batched expert computation over all E experts ---------
-    grid = exp_in.reshape(dp, ep, e_local, ecap, d).permute(1, 2, 0, 3, 4)
-    exp_out = expert_fn(expert_params, grid.reshape(e, dp * ecap, d))
+    # --- reduce: one batched expert computation over the banks held -------
+    rows = s // banks
+    grid = exp_in.reshape(rows, banks, e_local, ecap, d).permute(1, 2, 0, 3, 4)
+    exp_out = expert_fn(expert_params,
+                        grid.reshape(banks * e_local, rows * ecap, d))
     d_out = exp_out.shape[-1]
-    exp_out = (exp_out.reshape(ep, e_local, dp, ecap, d_out)
+    exp_out = (exp_out.reshape(banks, e_local, rows, ecap, d_out)
                .permute(2, 0, 1, 3, 4).reshape(s, e_local * ecap, d_out))
 
     # --- inverse pipeline -----------------------------------------------------
@@ -211,7 +234,7 @@ def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
     # back to arrival order: gperm is a permutation of each row
     y_arrival = torch.empty_like(y_sorted).scatter_(
         1, gperm[..., None].expand(-1, -1, d_out), y_sorted)
-    y_back = _all_to_all(y_arrival.reshape(s, ep, cap, d_out), dp, ep)
+    y_back = exchange(y_arrival.reshape(s, ep, cap, d_out), "moe.y")
 
     # combine at source: out[tok] += w * y for each of a shard's sent pairs.
     # index_add_ adds with atomics on a card: the order of the K adds to
@@ -221,6 +244,58 @@ def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
     tok = (torch.arange(s, device=dev)[:, None] * t + send_tok).reshape(-1)
     out = torch.zeros((n_tok, d_out), dtype=y_flat.dtype, device=dev)
     return out.index_add_(0, tok, (y_flat * w_flat).reshape(-1, d_out))
+
+
+def sort_dispatch(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
+                  expert_fn, ep_size: int = 1, dp: int = 1,
+                  routing: dict | None = None):
+    """The exoshuffle dispatch for all dp x ep_size shards at once, in one
+    process (the batch-axis form).
+
+    x: (T, d) tokens, shard (g, j) holding rows [(g*ep + j)*t, +t) with
+    t = T / (dp*ep) — the reference's P(("data", "model")) layout;
+    weights/ids: (T, K); expert_params: pytree whose leaves have leading
+    axis E (all experts; EP shard j owns [j*E_local, (j+1)*E_local)).
+    expert_fn(params, xin) maps (E, C, d) -> (E, C, d_out). Returns
+    (T, d_out), in x's dtype. `routing`: see _pipeline.
+    """
+    ep = ep_size
+    s = dp * ep
+    e_local = cfg.num_experts // max(ep, 1)
+    first = (torch.arange(s, device=x.device) % ep) * e_local
+    return _pipeline(x, weights, ids, expert_params, cfg=cfg,
+                     expert_fn=expert_fn, ep=ep, s=s, banks=ep,
+                     exchange=lambda blocks, what: _all_to_all(blocks, dp, ep),
+                     first=first, routing=routing)
+
+
+def sort_dispatch_ranks(x, weights, ids, expert_params, *,
+                        cfg: MoeDispatchConfig, expert_fn, mesh,
+                        routing: dict | None = None):
+    """The exoshuffle dispatch on one rank of `mesh` (the reference's
+    sort_dispatch_shard under shard_map).
+
+    x: (t, d) this rank's tokens; weights/ids: (t, K); expert_params:
+    this rank's bank, leading axis E/ep, where ep = mesh.size_of("model")
+    and the rank at index j of "model" owns experts [j*E/ep, (j+1)*E/ep)
+    (`first` is index_of("model"), the reference's axis_index). The tiled
+    all_to_all runs over the rank's "model" subgroup, with gradients;
+    capacities come from this rank's t. Returns (t, d_out).
+    `routing`: see _pipeline (a leading axis of 1).
+    """
+    ep = mesh.size_of("model")
+    e_local = cfg.num_experts // ep
+    first = torch.full((1,), mesh.index_of("model") * e_local,
+                       dtype=torch.int64, device=x.device)
+
+    def exchange(blocks, what):
+        if ep == 1:
+            return blocks
+        return all_to_all_tiled(blocks, mesh, what=what, axis="model")
+
+    return _pipeline(x, weights, ids, expert_params, cfg=cfg,
+                     expert_fn=expert_fn, ep=ep, s=1, banks=1,
+                     exchange=exchange, first=first, routing=routing)
 
 
 # ---------------------------------------------------------------------------
@@ -237,32 +312,62 @@ def _expert_slice(params, lo: int, hi: int):
     return params[lo:hi]
 
 
+def _local_experts(x, weights, ids, expert_params, *, lo: int, e_local: int,
+                   expert_fn):
+    """One EP shard's part of the decode dispatch: the routes to experts
+    [lo, lo + e_local) through that bank (expert_params, leading axis
+    e_local); the others are clipped into the local id range as weight-0
+    "ghosts". Capacity = T*K makes every queue large enough that ghosts
+    never displace a real token."""
+    local = (ids >= lo) & (ids < lo + e_local)
+    w_local = torch.where(local, weights, 0.0)
+    ids_local = (ids - lo).clamp(0, e_local - 1)
+    return onehot_dispatch_combine(
+        x, w_local, ids_local, num_experts=e_local,
+        capacity=x.shape[0] * ids.shape[-1],
+        expert_fn=lambda xin: expert_fn(expert_params, xin))
+
+
 def ep_replicated(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
                   ep_size: int, expert_fn):
-    """Decode dispatch with every token replicated over the EP axis.
+    """Decode dispatch with every token replicated over the EP axis, all
+    ep_size shards in one process (the batch-axis form).
 
     At decode the token count (B) is far below the mesh size, so the
     all_to_all pipeline has nothing to shard. Instead every EP shard sees
     ALL tokens, masks the routing weights to the experts it owns, runs
     its local expert bank, and the partial outputs are summed over the
-    EP axis (the reference's psum). Non-local routes are clipped into the
-    local id range as weight-0 "ghosts"; capacity = T*K makes every queue
-    large enough that ghosts never displace a real token.
+    EP axis (the reference's psum).
 
     x (T, d); weights/ids (T, K); expert_params: pytree with leading
     axis E. Returns (T, d_out).
     """
     e_local = cfg.num_experts // ep_size
-    cap = x.shape[0] * ids.shape[-1]
     out = None
     for j in range(ep_size):
         lo = j * e_local
-        local = (ids >= lo) & (ids < lo + e_local)
-        w_local = torch.where(local, weights, 0.0)
-        ids_local = (ids - lo).clamp(0, e_local - 1)
-        prm = _expert_slice(expert_params, lo, lo + e_local)
-        part = onehot_dispatch_combine(
-            x, w_local, ids_local, num_experts=e_local, capacity=cap,
-            expert_fn=lambda xin, prm=prm: expert_fn(prm, xin))
+        part = _local_experts(
+            x, weights, ids, _expert_slice(expert_params, lo, lo + e_local),
+            lo=lo, e_local=e_local, expert_fn=expert_fn)
         out = part if out is None else out + part
     return out
+
+
+def ep_replicated_ranks(x, weights, ids, expert_params, *,
+                        cfg: MoeDispatchConfig, expert_fn, mesh):
+    """The decode dispatch on one rank of `mesh` (the reference's
+    ep_replicated_shard): x (T, d), weights/ids (T, K) the same on every
+    rank of a "model" subgroup; expert_params this rank's E/ep experts.
+    The rank runs its bank's part and the parts are summed over the
+    subgroup (all_reduce: every rank gets the same bytes). Gradients: the
+    tokens' and the routing weights' are summed over the subgroup too
+    (each rank computes only its bank's part of them). Returns (T,
+    d_out)."""
+    ep = mesh.size_of("model")
+    e_local = cfg.num_experts // ep
+    x = psum_grad(x, mesh, "model", what="moe.psum")
+    weights = psum_grad(weights, mesh, "model", what="moe.psum")
+    part = _local_experts(x, weights, ids, expert_params,
+                          lo=mesh.index_of("model") * e_local,
+                          e_local=e_local, expert_fn=expert_fn)
+    return psum(part, mesh, "model", what="moe.psum")

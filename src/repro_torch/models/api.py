@@ -26,9 +26,14 @@ with gradients for training or in the config's dtype for serving;
 `params_from_reference(tree, device=...)` carries the JAX package's
 parameter pytree (numpy arrays; models/naming.py maps the names) across,
 so that both packages compute from the same weights. `build(cfg,
-ep_size=, dp=)` stands in for the reference's `mesh=` / `dp_axes=`: the
-MoE dispatch runs the dp x ep_size mesh shards as a batch axis
-(models/moe.py).
+mesh=)` is the reference's `build(cfg, mesh=, dp_axes=)`: on a rank of a
+launch/mesh.RankMesh with axes ("data", "model") the model holds the
+rank's E/ep experts and its MoE dispatch runs over the ranks
+(models/moe.py); the entry points take the rank's data row of the
+batch (launch/sharding.local_batch), and `params_from_reference(...,
+mesh=)` keeps the rank's slice. `build(cfg, ep_size=, dp=)` runs the
+dp x ep_size mesh shards as a batch axis in one process instead (the
+rank path's oracle).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import u32
+from repro_torch.launch.sharding import rank_split
 from repro_torch.models import hymba, naming, transformer, whisper, xlstm
 from repro_torch.models.config import ArchConfig
 
@@ -60,6 +66,7 @@ class ModelApi:
     decode_step: Callable[..., Any]  # (params, cache, token, pos) -> (logits, cache)
     init_cache: Callable[..., Any]  # (batch, max_len, device=) -> cache
     params_from_reference: Callable[..., Any]  # (tree, device=, trainable=) -> params
+    mesh: Any = None  # the rank's launch/mesh.RankMesh, or None
 
     def abstract_params(self):
         """The serving weights (the config's dtype) on "meta"."""
@@ -144,34 +151,62 @@ def stub_inputs(cfg: ArchConfig, batch: int, seq: int,
                               device=generator.device)}
 
 
+def new_model(cfg: ArchConfig, generator, *, trainable: bool = False,
+              mesh=None):
+    """The family's module; on a rank of `mesh` (transformer families:
+    the MoE banks hold the rank's experts; the others have nothing to
+    place and are the one-process module)."""
+    cls = model_class(cfg)
+    if mesh is not None and cls is transformer.Transformer:
+        return cls(cfg, generator, trainable=trainable, mesh=mesh)
+    return cls(cfg, generator, trainable=trainable)
+
+
 def params_from_reference(cfg: ArchConfig, tree, *, device="cuda",
-                          trainable: bool = False):
+                          trainable: bool = False, mesh=None):
     """The port's model holding the reference's weights: `tree` is the
     JAX parameter pytree as nested dicts (and xlstm's list) of numpy
     arrays (e.g. `jax.tree.map(np.asarray, params)`). Serving casts them
     to the config's dtype; `trainable` keeps them as float32 masters
-    with gradients."""
+    with gradients. On a rank of `mesh`, the model keeps its slice of
+    each split tensor (launch/sharding.rank_split)."""
     dev = u32.resolve_device(device)
     dt = transformer.param_dtype(cfg, trainable)
-    model = model_class(cfg)(cfg, None, trainable=trainable)
-    state = {name: torch.from_numpy(np.array(arr)).to(device=dev, dtype=dt)
-             for name, arr in naming.reference_state(cfg, tree).items()}
+    model = new_model(cfg, None, trainable=trainable, mesh=mesh)
+    local = dict(model.named_parameters())
+    split = rank_split(model)
+    state = {}
+    for name, arr in naming.reference_state(cfg, tree).items():
+        if name in split:
+            dim, n = split[name], local[name].shape[split[name]]
+            lo = mesh.index_of("model") * n
+            arr = np.take(arr, np.arange(lo, lo + n), axis=dim)
+        state[name] = torch.from_numpy(np.array(arr)).to(device=dev,
+                                                         dtype=dt)
     model.load_state_dict(state, strict=True, assign=True)
     return model.requires_grad_(trainable)
 
 
-def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1) -> ModelApi:
+def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1,
+          mesh=None) -> ModelApi:
     cls = model_class(cfg)
     fam = cfg.family
-    mesh = dict(ep_size=ep_size, dp=dp)
+    if mesh is not None and ep_size * dp > 1:
+        raise ValueError("build: a rank mesh (mesh=) or the mesh as a batch "
+                         "axis (ep_size=, dp=), not both")
+    if mesh is not None and "pod" in mesh.axes:
+        raise NotImplementedError(
+            "build: a 'pod' axis is the pod-group gradient compression's "
+            "(ROADMAP.md §1 item 3), not ported yet")
+    batch_mesh = dict(ep_size=ep_size, dp=dp)
 
     def init(generator: torch.Generator, *, trainable: bool = False):
-        return cls(cfg, generator, trainable=trainable)
+        return new_model(cfg, generator, trainable=trainable, mesh=mesh)
 
     if cls is transformer.Transformer:
         def forward(params, batch):
             return params.forward(batch["tokens"], batch.get("patch_embeds"),
-                                  **mesh)
+                                  **batch_mesh)
 
         def prefill(params, batch, max_len=None):
             # max_len counts text positions; the VLM patch prefix lives in
@@ -179,10 +214,10 @@ def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1) -> ModelApi:
             if fam == "vlm" and max_len is not None:
                 max_len = max_len + cfg.vlm_prefix
             return params.prefill(batch["tokens"], max_len,
-                                  batch.get("patch_embeds"), **mesh)
+                                  batch.get("patch_embeds"), **batch_mesh)
 
         def decode_step(params, cache, token, pos):
-            return params.decode_step(cache, token, pos, **mesh)
+            return params.decode_step(cache, token, pos, **batch_mesh)
 
         def new_cache(batch, max_len, dev):
             return transformer.init_cache(cfg, batch, max_len, dev)
@@ -225,9 +260,10 @@ def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1) -> ModelApi:
 
     def from_reference(tree, *, device="cuda", trainable: bool = False):
         return params_from_reference(cfg, tree, device=device,
-                                     trainable=trainable)
+                                     trainable=trainable, mesh=mesh)
 
-    return ModelApi(cfg=cfg, init=init, forward=forward, loss=loss,
+    return ModelApi(cfg=cfg, mesh=mesh, init=init, forward=forward,
+                    loss=loss,
                     prefill=prefill, decode_step=decode_step,
                     init_cache=init_cache,
                     params_from_reference=from_reference)

@@ -20,6 +20,17 @@ computes exactly what it did before the mask.
 Shared experts (qwen2-moe has 4, fused into one wide SwiGLU) run dense
 alongside the routed path. Every dispatch path carries gradients into
 the tokens, the routing weights and the expert banks.
+
+On a rank of a launch/mesh.RankMesh (`mesh=`), the block holds only its
+E/ep experts, ep = the "model" axis's size (launch/sharding's EP rule):
+it still draws every tensor in the one-process order and keeps its
+slice, so that its weights equal the one-process model's (transiently
+one whole expert bank). `forward` then takes the reference's two
+shard_map branches with the sort dispatch: over the ranks
+(`sort_dispatch_ranks`) for S > 1, the tokens of the rank's data row
+split over "model" and gathered back; replicated with a psum
+(`ep_replicated_ranks`) for S == 1. The router and everything outside
+the dispatch run replicated on every rank of the row.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import moe_dispatch as md
+from repro_torch.core.collectives import gather_rows, split_rows
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
 
@@ -50,25 +62,45 @@ def mask_pad_experts(logits, n_experts: int):
     return logits.masked_fill(pad, float("-inf"))
 
 
+def expert_range(cfg: ArchConfig, mesh) -> tuple[int, int]:
+    """[lo, hi) of the (padded) experts a rank of `mesh` holds: all of
+    them without a mesh."""
+    e = cfg.n_experts_padded
+    ep = 1 if mesh is None else mesh.size_of("model")
+    if e % ep:
+        raise ValueError(f"{cfg.name}: {e} experts do not split over "
+                         f"{ep} ranks of 'model'")
+    j = 0 if mesh is None else mesh.index_of("model")
+    return j * e // ep, (j + 1) * e // ep
+
+
 class MoeFFN(nn.Module):
     """Router, the routed expert bank (E padded, ...) and the shared
-    experts of one block. `dtype` is the parameters' storage type."""
+    experts of one block. `dtype` is the parameters' storage type; on a
+    rank of `mesh`, the bank holds the rank's experts only."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator | None,
-                 *, dtype: torch.dtype, requires_grad: bool = False):
+                 *, dtype: torch.dtype, requires_grad: bool = False,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         d, e, fe = cfg.d_model, cfg.n_experts_padded, cfg.d_ff_expert
+        lo, hi = expert_range(cfg, mesh)
+        #: {parameter: dim} of this block's tensors split over the ranks
+        self.rank_split = ({} if hi - lo == e else
+                           {n: 0 for n in ("w_gate", "w_up", "w_down")})
 
-        def uni(shape, scale=None):
-            return nn.Parameter(layers.uniform_init(shape, generator, scale,
-                                                    dtype=dtype),
-                                requires_grad=requires_grad)
+        def uni(shape, scale=None, bank=False):
+            t = layers.uniform_init(shape, generator, scale, dtype=dtype)
+            if bank and self.rank_split:
+                t = t[lo:hi].clone()  # the full bank's draw, then the slice
+            return nn.Parameter(t, requires_grad=requires_grad)
 
         self.router = uni((d, e))
-        self.w_gate = uni((e, d, fe), d**-0.5)
-        self.w_up = uni((e, d, fe), d**-0.5)
-        self.w_down = uni((e, fe, d), fe**-0.5)
+        self.w_gate = uni((e, d, fe), d**-0.5, bank=True)
+        self.w_up = uni((e, d, fe), d**-0.5, bank=True)
+        self.w_down = uni((e, fe, d), fe**-0.5, bank=True)
         self.shared = (nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=requires_grad) for k, v in
              layers.swiglu_init(d, cfg.shared_d_ff, generator,
@@ -82,7 +114,8 @@ class MoeFFN(nn.Module):
     def forward(self, x, *, ep_size: int = 1, dp: int = 1):
         """x (B, S, d) -> (B, S, d). ep_size, dp: the mesh as a batch axis
         (the reference's `mesh` with dp data shards x ep_size EP shards;
-        both 1 for no mesh)."""
+        both 1 for no mesh). On a rank (the block's `mesh`), x is the
+        rank's data row and both stay 1."""
         cfg = self.cfg
         dt = x.dtype
         b, s, d = x.shape
@@ -94,7 +127,14 @@ class MoeFFN(nn.Module):
         dcfg = md.MoeDispatchConfig(
             num_experts=cfg.n_experts_padded, top_k=cfg.top_k,
             capacity_factor=cfg.moe_capacity_factor)
-        if impl == "sort" and mesh and s == 1:
+        if self.mesh is not None and (mesh or (impl != "sort"
+                                               and self.rank_split)):
+            raise ValueError(f"{cfg.name}: a rank's MoE block runs the sort "
+                             "dispatch over its mesh (dispatch_impl="
+                             f"{impl!r}, ep_size={ep_size}, dp={dp})")
+        if self.mesh is not None and impl == "sort":
+            routed = self._ranks(tokens, weights, ids, dcfg, s)
+        elif impl == "sort" and mesh and s == 1:
             # decode: tokens (B) << mesh size, replicated over the EP shards
             routed = md.ep_replicated(tokens, weights, ids, self.experts(),
                                       cfg=dcfg, ep_size=ep_size,
@@ -118,3 +158,23 @@ class MoeFFN(nn.Module):
         if self.shared is not None:
             out = out + layers.swiglu(self.shared, x)
         return out
+
+    def _ranks(self, tokens, weights, ids, dcfg, s):
+        """The dispatch over the block's mesh: the rank's row of tokens
+        (T, d), replicated over "model", in and out."""
+        mesh = self.mesh
+        if s == 1:
+            # decode: tokens (B) << mesh size, replicated over the EP ranks
+            return md.ep_replicated_ranks(tokens, weights, ids,
+                                          self.experts(), cfg=dcfg,
+                                          expert_fn=expert_fn, mesh=mesh)
+        ep, j = mesh.size_of("model"), mesh.index_of("model")
+        t = tokens.shape[0] // ep
+        if t * ep != tokens.shape[0]:
+            raise ValueError(f"{tokens.shape[0]} tokens of a data row do "
+                             f"not split over {ep} ranks of 'model'")
+        mine = md.sort_dispatch_ranks(
+            split_rows(tokens, mesh, "model"),
+            split_rows(weights, mesh, "model"), ids[j * t:(j + 1) * t],
+            self.experts(), cfg=dcfg, expert_fn=expert_fn, mesh=mesh)
+        return gather_rows(mine, mesh, "model")

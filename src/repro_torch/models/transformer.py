@@ -25,7 +25,11 @@ Entry points (methods of `Transformer`):
   decode_step(cache, token, pos)       -> (logits (B, 1, vocab), cache)
 and `Transformer(cfg, generator)` draws the weights on the generator's
 device; `init_cache` makes prefill's cache.
-Each takes the mesh as a batch axis (`ep_size`, `dp`; see models/moe.py).
+Each takes the mesh as a batch axis (`ep_size`, `dp`; see models/moe.py),
+or the model is built on a rank (`Transformer(..., mesh=)`, a
+launch/mesh.RankMesh): its MoE blocks then hold the rank's experts and
+dispatch over the ranks, every other weight is replicated, and the
+entry points take the rank's data row of the batch.
 Where the reference lays attention out for `attn_sharding="qfull"`, the
 query is one chunk here too (`q_chunk=0`); `cfg.causal_skip` visits only
 the live chunk pairs.
@@ -77,7 +81,7 @@ class Block(nn.Module):
     FFN."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator | None,
-                 trainable: bool = False):
+                 trainable: bool = False, mesh=None):
         super().__init__()
         self.cfg = cfg
         dt = param_dtype(cfg, trainable)
@@ -96,7 +100,7 @@ class Block(nn.Module):
                 generator, dt))
         if cfg.is_moe:
             self.ffn = MoeFFN(cfg, generator, dtype=dt,
-                              requires_grad=trainable)
+                              requires_grad=trainable, mesh=mesh)
         elif cfg.d_ff:
             self.ffn = prm(layers.swiglu_init(cfg.d_model, cfg.d_ff,
                                               generator, dt))
@@ -158,17 +162,18 @@ class Transformer(nn.Module):
     stacked = ("blocks",)  # the reference stacks the layers' leaves
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator | None,
-                 *, trainable: bool = False):
+                 *, trainable: bool = False, mesh=None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
                              f"transformer family {FAMILIES}")
         self.cfg = cfg
         self.trainable = trainable
+        self.mesh = mesh
         dt = param_dtype(cfg, trainable)
         self.embed = _params(layers.embedding_init(
             cfg.padded_vocab, cfg.d_model, generator, dt), trainable)
-        self.blocks = nn.ModuleList(Block(cfg, generator, trainable)
+        self.blocks = nn.ModuleList(Block(cfg, generator, trainable, mesh)
                                     for _ in range(cfg.n_layers))
         self.ln_f = _params(layers.rmsnorm_init(cfg.d_model, generator, dt),
                             trainable)

@@ -21,6 +21,13 @@ layers, a list in the reference, stay one leaf `blocks__<i>__<key>`
 each. `load` checks each
 leaf's crc32 and puts it on the device it is asked for: a checkpoint
 written on one device restores onto another (launch/reshard.py).
+
+On the ranks of a launch/mesh.RankMesh (`mesh=`), the layout stays the
+same: `save` gathers the tensors a rank model holds a slice of (the
+expert banks and their moments, launch/sharding.rank_split) over the
+"model" axis, rank 0 writes, and every rank waits for it; `load` reads
+the whole leaf and each rank keeps its slice. So a checkpoint written
+by ranks loads in one process, and in the reference, and back.
 """
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.collectives import gather_rows
 from repro_torch.kernels import u32
+from repro_torch.launch.sharding import rank_split
 from repro_torch.models.naming import STACKED, layer_groups
 
 
@@ -48,19 +57,29 @@ def _named(node) -> dict | None:
     return None
 
 
-def _stacking(node, default=STACKED):
-    """The stacked prefixes of the first model in a state tree (the
-    moments beside it are named after its parameters); `default` when
-    the tree holds no model."""
+def _first_model(node):
+    """The first model (nn.Module) in a state tree, or None: the moments
+    beside it are named after its parameters."""
     if isinstance(node, nn.Module):
-        return getattr(node, "stacked", STACKED)
+        return node
     children = node.values() if isinstance(node, Mapping) else \
         node if isinstance(node, (list, tuple)) else ()
     for child in children:
-        found = _stacking(child, None)
+        found = _first_model(child)
         if found is not None:
             return found
-    return default
+    return None
+
+
+def _stacking(node):
+    """The stacked prefixes of the first model in a state tree."""
+    return getattr(_first_model(node), "stacked", STACKED)
+
+
+def _rank_split(node) -> dict:
+    """launch/sharding.rank_split of the first model in a state tree."""
+    model = _first_model(node)
+    return {} if model is None else rank_split(model)
 
 
 def _groups(named: dict, path: tuple, stacked):
@@ -71,11 +90,13 @@ def _groups(named: dict, path: tuple, stacked):
 
 
 def _leaves(node, stacked, path=()):
-    """(leaf name, stacked?, [tensors]) of every leaf of a state tree."""
+    """(leaf name, stacked?, [tensors], [state names]) of every leaf of a
+    state tree (state names None outside a module or a mapping keyed by
+    parameter names)."""
     named = _named(node)
     if named is not None:
         for name, is_stack, names in _groups(named, path, stacked):
-            yield name, is_stack, [named[n] for n in names]
+            yield name, is_stack, [named[n] for n in names], names
     elif isinstance(node, Mapping):
         for k, v in node.items():
             yield from _leaves(v, stacked, path + (str(k),))
@@ -83,7 +104,7 @@ def _leaves(node, stacked, path=()):
         for i, v in enumerate(node):
             yield from _leaves(v, stacked, path + (str(i),))
     else:
-        yield "__".join(path), False, [node]
+        yield "__".join(path), False, [node], [None]
 
 
 def _all_leaves(state):
@@ -92,7 +113,7 @@ def _all_leaves(state):
 
 def leaf_names(state) -> list[str]:
     """The checkpoint leaf names of a state tree, in save order."""
-    return [name for name, _, _ in _all_leaves(state)]
+    return [name for name, _, _, _ in _all_leaves(state)]
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -101,15 +122,39 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def save(state, ckpt_dir: str, step: int):
-    """Write `state` as step `step` under ckpt_dir; returns its directory."""
+def save(state, ckpt_dir: str, step: int, *, mesh=None):
+    """Write `state` as step `step` under ckpt_dir; returns its directory.
+    On the ranks of `mesh` every rank calls it: the split tensors are
+    gathered over "model" and rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if mesh is not None:
+        split = _rank_split(state)
+        # only the first data row's ranks gather: rank 0 is one of them
+        lead = mesh.index_of(mesh.data_axes) == 0 if mesh.data_axes \
+            else True
+        gathered = []
+        if lead:
+            for name, is_stack, tensors, names in _all_leaves(state):
+                tensors = [gather_rows(t.detach().movedim(split[n], 0),
+                                       mesh, "model", what="checkpoint")
+                           .movedim(0, split[n]) if n in split else t
+                           for t, n in zip(tensors, names)]
+                gathered.append((name, is_stack, tensors))
+        if mesh.rank == 0:
+            _write(gathered, ckpt_dir, step, final)
+        mesh.barrier()
+        return final
+    return _write(((name, is_stack, tensors) for name, is_stack, tensors, _
+                   in _all_leaves(state)), ckpt_dir, step, final)
+
+
+def _write(leaves, ckpt_dir: str, step: int, final: str):
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for name, is_stack, tensors in _all_leaves(state):
+    for name, is_stack, tensors in leaves:
         arrs = [_to_numpy(t) for t in tensors]
         arr = np.stack(arrs) if is_stack else arrs[0]
         del arrs
@@ -140,12 +185,13 @@ def latest_step(ckpt_dir: str):
 
 
 def load(target, ckpt_dir: str, step: int | None = None, *, device="cuda",
-         verify: bool = True):
+         verify: bool = True, mesh=None):
     """Restore into the structure of `target` (shapes only, e.g. on
     "meta", is enough): every leaf is read, its crc32 checked against the
     manifest, and put on `device` in the target's dtype. A module in the
     target is filled in place (its parameters keep their requires_grad).
-    Returns (state, step)."""
+    On a rank of `mesh` (the target built on it), a split tensor keeps
+    the rank's slice. Returns (state, step)."""
     dev = u32.resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -173,6 +219,15 @@ def load(target, ckpt_dir: str, step: int | None = None, *, device="cuda",
             device=dev, dtype=dtype)
 
     stacked = _stacking(target)
+    split = _rank_split(target) if mesh is not None else {}
+
+    def mine(arr, like, n):
+        """The rank's slice of a split tensor (its part along the dim)."""
+        if n not in split:
+            return arr
+        dim, k = split[n], like.shape[split[n]]
+        lo = mesh.index_of("model") * k
+        return np.take(arr, np.arange(lo, lo + k), axis=dim)
 
     def fill_named(named, path):
         out = {}
@@ -183,7 +238,7 @@ def load(target, ckpt_dir: str, step: int | None = None, *, device="cuda",
                 raise ValueError(f"{name}: {len(parts)} layers in the "
                                  f"checkpoint, {len(names)} in the target")
             for n, a in zip(names, parts):
-                out[n] = put(a, named[n], name)
+                out[n] = put(mine(a, named[n], n), named[n], name)
         return out
 
     def fill(node, path):

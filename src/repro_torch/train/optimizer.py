@@ -12,6 +12,11 @@ model's `named_parameters()`); the moments and every update are float32.
 at a time, so a step needs no second copy of the training state, and
 keeps the step counter, the lr and the norm on the parameters' device:
 nothing waits for the card.
+
+On a rank of a launch/mesh.RankMesh, the global norm counts each
+replicated gradient once and sums the split ones' (the expert banks,
+`split`) squares over the "model" axis, so every rank clips by the norm
+of the whole model's gradient.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.core.collectives import psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +66,21 @@ def init_opt_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(grads):
-    """sqrt of the sum of every gradient's squares, in float32."""
+def global_norm(grads, *, mesh=None, split=()):
+    """sqrt of the sum of every gradient's squares, in float32. On a rank
+    of `mesh`, the gradients named in `split` are this rank's slices of
+    tensors split over "model": their squares are summed over the axis
+    (one all_reduce), and the replicated ones counted once."""
     total = 0
-    for g in grads.values():
-        total = total + torch.sum(torch.square(g.float()))
+    for name, g in grads.items():
+        if name not in split:
+            total = total + torch.sum(torch.square(g.float()))
+    if split:
+        part = 0
+        for name in split:
+            part = part + torch.sum(torch.square(grads[name].float()))
+        total = total + psum(torch.as_tensor(part).reshape(1), mesh,
+                             "model", what="grad_norm")[0]
     return torch.sqrt(total)
 
 
@@ -80,13 +97,15 @@ def clip_by_global_norm(grads, max_norm):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptConfig):
+def adamw_update(params, grads, state, cfg: OptConfig, *, mesh=None,
+                 split=()):
     """One AdamW step. Updates `params`' tensors and state["mu"]/["nu"] in
     place; returns (params, new state, {"lr", "grad_norm"}), where
-    grad_norm is the norm before clipping."""
+    grad_norm is the norm before clipping (over the ranks of `mesh`, with
+    the `split` gradients summed over "model": see global_norm)."""
     step = state["step"] + 1
     lr = lr_at(step, cfg).to(step.device)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh=mesh, split=split)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.float()
