@@ -103,8 +103,25 @@ Run from the repo root on a machine with one H100. It
      global gradient norm, parameters), replicated parameters
      bit-identical on every rank, then 4 timed steps; `train.moe_example.ranks`, the MoE
      training example over the reference's data 2 x model 4 mesh (8
-     ranks), 20 steps, losses against the one-process example's;
- 17. the other five families, each at its published widths:
+     ranks), 6 steps, losses against the one-process example's;
+ 17. tensor parallelism over gloo rank processes on the one card
+     (Megatron's: a rank holds 1/tp of every projection, FFN and the
+     tied vocabulary; launch/sharding.split_dims), mistral-nemo-12b at
+     its published widths: `tp.identity`, 2 layers in float32 over
+     data 1 x model 4 and data 2 x model 2 against one process on the
+     card (prefill logits within 1e-5, 8 greedy tokens, one train step:
+     loss, each rank's gradient norm, parameters, replicas identical);
+     `serve.tp`, all 40 layers in bfloat16 over data 1 x model 4, 4
+     requests of 128-token prompts, 32 greedy tokens: tokens identical
+     on every rank, parameter bytes a rank against one bfloat16
+     process's, prefill and decode ms, tokens/s, peaks, each
+     collective's calls, bytes and ms; `train.tp`, 1 layer of float32
+     masters over data 2 x model 2 with sequence parallelism, batch 4 x
+     128, one step held as tp.identity's and 4 timed, its peak against
+     the dry run's. serve.ranks and train.ranks (qwen2-moe-a2.7b) run
+     tensor-parallel attention, shared experts and vocabulary beside
+     their expert parallelism;
+ 18. the other five families, each at its published widths:
      `<family>.identity` (card against CPU in float32 from the same
      weights, cut in depth: prefill logits, 8 greedy tokens, one train
      step) and `<family>.serve` (full depth in bfloat16, 4 requests of
@@ -113,10 +130,11 @@ Run from the repo root on a machine with one H100. It
      (minicpm3-4b), ssm (xlstm-125m), hybrid (hymba-1.5b, 1,100-token
      prompts that wrap its 1,024-position ring) and encdec (whisper-base,
      with frames), each with `<family>.split`, a profiler split of one
-     decode step; then `hybrid.train`, hymba-1.5b at full size, 8 AdamW
-     steps of bfloat16 over float32 masters with remat, and
+     decode step; then `hybrid.train`, hymba-1.5b at its published
+     widths, 8 of 32 layers deep, 4 AdamW steps of bfloat16 over
+     float32 masters with remat, and
      `hybrid.train.split`, one more step traced;
- 18. the dry run against the card: after each phase that reads
+ 19. the dry run against the card: after each phase that reads
      `max_memory_allocated` (serve.full, train.full, each
      `<family>.serve`, hybrid.train), `dryrun.hold` runs the same window
      (`serve_window`, `train_window`) again on "meta" tensors through
@@ -128,11 +146,11 @@ Run from the repo root on a machine with one H100. It
      the dense bf16 peak); `cost.tco`, core/cost_model.gpu_cloudsort_tco
      at the full run's map and reduce rates; `phase.seconds`, each
      phase's wall seconds. None of this launches a kernel;
- 19. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
+ 20. prints nvidia-smi's own name/power-limit line, the `kernels` JSON
      line (each kernel's launches on the full run, and per phase) and,
      last, the `ok` line.
 
-Each of the phases 5-17 zeroes every kernel's launch count just before
+Each of the phases 5-18 zeroes every kernel's launch count just before
 its runs and reads it just after (a process fleet's children and the
 rank processes report theirs), and fails if a kernel of its path never
 launched, or, where the path runs none of the four kernels (the
@@ -226,7 +244,11 @@ FAMILY_IDENTITY = {
 }
 FAMILY_SERVE_PROMPT = {"hybrid": 1100}  # else SERVE_FULL_PROMPT
 HYBRID_TRAIN_BATCH = (4, 1280)
-HYBRID_TRAIN_STEPS = 8  # one batch repeated
+# 8 of 32 layers (layer 0 global, 1-7 windowed) and 4 steps: the step and
+# its meta dry run are host-bound, and all 32 layers took 180 s of a
+# run whose limit the tensor-parallel phases left no room for
+HYBRID_TRAIN_LAYERS = 8
+HYBRID_TRAIN_STEPS = 4  # one batch repeated
 DRYRUN_TOL = 0.10  # |predicted / measured - 1| of a phase's peak memory
 # expert parallelism over gloo ranks on the one card (slice 10)
 EP_RANKS = 4  # rank processes of the 4-rank phases
@@ -234,7 +256,16 @@ MOE_RANK_LAYOUTS = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
 TRAIN_RANKS_BUDGET = 70e9  # the dry run's summed rank peaks must fit it
 TRAIN_RANKS_MORE_STEPS = 4  # timed steps after the held one
 TRAIN_GRAD_NORM_RTOL = 1e-5  # a rank's global gradient norm vs one process
-MOE_EXAMPLE_RANKS_STEPS = 20
+MOE_EXAMPLE_RANKS_STEPS = 6
+# tensor parallelism over gloo ranks on the one card
+TP_ARCH = "mistral-nemo-12b"
+TP_IDENTITY_LAYERS = 2
+TP_LAYOUTS = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
+TP_TOL = 1e-5  # max |diff| of float32 prefill logits and loss, TP vs one
+TP_SERVE_MESH = {"data": 1, "model": 4}
+TP_TRAIN_LAYERS = 1
+TP_TRAIN_MESH = {"data": 2, "model": 2}
+TP_TRAIN_BATCH = (4, 128)
 BF16_DENSE_PEAK = 989e12  # H100 SXM data sheet: dense bf16 tensor FLOP/s
 DEVICE = "cuda"
 BUCKET = "cloudsort"
@@ -2226,7 +2257,8 @@ RANK_SETTINGS = ("DEVICE", "SEED", "MOE_SHAPE", "MOE_CAPACITY_FACTOR",
                  "SERVE_REQUESTS", "SERVE_IDENTITY_PROMPT",
                  "SERVE_IDENTITY_NEW", "SERVE_FULL_PROMPT", "SERVE_FULL_NEW",
                  "TRAIN_IDENTITY_BATCH", "TRAIN_PARAM_RTOL",
-                 "TRAIN_PARAM_ATOL", "TRAIN_RANKS_MORE_STEPS")
+                 "TRAIN_PARAM_ATOL", "TRAIN_RANKS_MORE_STEPS", "TP_LAYOUTS",
+                 "TP_SERVE_MESH", "TP_TRAIN_MESH", "TP_TRAIN_BATCH")
 
 
 def train_ranks_tcfg():
@@ -2347,11 +2379,15 @@ def serve_tokens(model, params, tokens, new, device, stats=None,
                  mesh=None):
     """Prefill logits and `new` greedy tokens of a batch of prompts; on a
     rank of `mesh`, the collectives of generate (its own prefill and the
-    decode steps) in the mesh's exchange log."""
+    decode steps) in the mesh's exchange log. On a tensor-parallel rank
+    the logits are gathered over the vocab."""
+    from repro_torch.core.collectives import all_gather_seq
     from repro_torch.serve.engine import ServeConfig, generate
 
     batch = {"tokens": torch.from_numpy(tokens).to(device)}
     logits, _ = model.prefill(params, batch)
+    if getattr(params, "tp", None) is not None:
+        logits = all_gather_seq(logits, params.tp, "model", dim=-1)
     if mesh is not None:
         mesh.record_exchanges()
     gen, steps = generate(model, params, batch,
@@ -2359,29 +2395,42 @@ def serve_tokens(model, params, tokens, new, device, stats=None,
     return logits.float().cpu(), gen.cpu()
 
 
-def exchange_summary(log, layers):
-    """A rank's exchange log of one generate: the prefill's all_to_alls
-    (3 a layer: expert ids, tokens, outputs) and all_gather (1 a layer),
-    each decode step's psum (1 a layer): ms a layer (median, min, max),
-    bytes a call."""
+def exchange_kinds(log):
+    """A rank's exchange log by kind (`what`): calls, bytes a call, ms a
+    call (median, min, max) and in all, and the clock."""
     out = {}
-    for key, whats, per_layer in (("a2a", ("moe.ids", "moe.x", "moe.y"), 3),
-                                  ("gather", ("gather",), 1),
-                                  ("psum", ("moe.psum",), 1)):
-        calls = [x for x in log if x["what"] in whats]
-        ms = [sum(x["ms"] for x in calls[i:i + per_layer])
-              for i in range(0, len(calls), per_layer)]
-        out[key] = {"calls": len(calls), "ms_a_layer_median":
-                    statistics.median(ms) if ms else None,
-                    "ms_a_layer_min": min(ms) if ms else None,
-                    "ms_a_layer_max": max(ms) if ms else None,
-                    "bytes_a_layer": sum(x["bytes"] for x in calls)
-                    / max(len(ms), 1),
-                    "clock": sorted({x["clock"] for x in calls})}
-    if out["gather"]["calls"] != layers:
-        raise AssertionError(f"serve.ranks: {out['gather']['calls']} "
-                             f"gathers in the prefill of {layers} layers")
+    for what in sorted({x["what"] for x in log}):
+        calls = [x for x in log if x["what"] == what]
+        ms = [x["ms"] for x in calls]
+        out[what] = {"calls": len(calls),
+                     "bytes_a_call": sum(x["bytes"] for x in calls)
+                     / len(calls),
+                     "ms_median": statistics.median(ms), "ms_min": min(ms),
+                     "ms_max": max(ms), "ms_total": sum(ms),
+                     "clock": sorted({x["clock"] for x in calls})}
     return out
+
+
+def exchange_summary(log, layers):
+    """A rank's exchange log of one generate of an MoE model on data 1 x
+    model tp: the prefill's all_to_alls (3 a layer: expert ids, tokens,
+    outputs) ms a layer (median, min, max) and bytes, then every kind of
+    collective (exchange_kinds): the tensor-parallel psums of the
+    embedding and of each block's attention, each block's one MoE psum
+    (routed and shared experts' partial sums together), the greedy
+    pick's gather."""
+    calls = [x for x in log if x["what"] in ("moe.ids", "moe.x", "moe.y")]
+    ms = [sum(x["ms"] for x in calls[i:i + 3])
+          for i in range(0, len(calls), 3)]
+    if len(calls) != 3 * layers:
+        raise AssertionError(f"serve.ranks: {len(calls)} all_to_alls in "
+                             f"the prefill of {layers} layers")
+    return {"a2a": {"calls": len(calls),
+                    "ms_a_layer_median": statistics.median(ms),
+                    "ms_a_layer_min": min(ms), "ms_a_layer_max": max(ms),
+                    "bytes_a_layer": sum(x["bytes"] for x in calls)
+                    / layers},
+            "kinds": exchange_kinds(log)}
 
 
 def ep4_body(rank, world, store, settings, identity_cfg, full_cfg):
@@ -2614,6 +2663,41 @@ def train_ranks_layout(cfg):
                          f"B: predicted rank peaks {peaks}")
 
 
+def hold_params(params, ref_path, mesh, dev):
+    """A rank model's parameters against the one-process model's (saved
+    at `ref_path`), each rank's slice of a split tensor
+    (launch/sharding.rank_split) against the same slice: (max |diff|,
+    the worst element's excess over TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL
+    |want|, whether the replicas are bit-identical: every replicated
+    parameter on every rank, every slice on the ranks holding it (one
+    per data row), by sha256 gathered over the ranks)."""
+    import hashlib
+
+    from repro_torch.launch.sharding import rank_split
+
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    split = rank_split(params)
+    j = mesh.index_of("model")
+    diff, excess, digests = 0.0, -1.0, {}
+    for name, p in params.named_parameters():
+        want = ref[name]
+        if name in split:
+            k = p.shape[split[name]]
+            want = want.narrow(split[name], j * k, k)
+        want = want.to(dev)
+        d = (p.detach() - want).abs().nan_to_num(nan=float("inf"))
+        diff = max(diff, float(d.max()))
+        excess = max(excess, float((d - TRAIN_PARAM_ATOL
+                                    - TRAIN_PARAM_RTOL * want.abs()).max()))
+        digests[name] = hashlib.sha256(
+            p.detach().cpu().numpy().tobytes()).hexdigest()
+    del ref, want
+    every = mesh.all_gather_object((j, digests))
+    replicas = all(d[n] == digests[n] for i, d in every for n in digests
+                   if n not in split or i == j)
+    return diff, excess, replicas
+
+
 def train_ranks_body(rank, world, store, settings, cfg, ref_path):
     """train.ranks on one rank: the state drawn as the one-process run
     drew it (each rank keeps its experts), one step held against the
@@ -2622,9 +2706,6 @@ def train_ranks_body(rank, world, store, settings, cfg, ref_path):
     timed steps. The peak memory of the first window (state and step,
     what the dry run predicts) and of the timed steps, apart: the hold's
     copies of the reference are in neither."""
-    import hashlib
-
-    from repro_torch.launch.sharding import rank_split
     from repro_torch.models import api as mapi
     from repro_torch.train.train_step import init_train_state, make_train_step
 
@@ -2648,27 +2729,8 @@ def train_ranks_body(rank, world, store, settings, cfg, ref_path):
         # the window the dry run predicts: the state drawn, one step
         window_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
         metrics = {k: float(v) for k, v in m.items()}
-        ref = torch.load(ref_path, mmap=True, map_location="cpu")
-        split = rank_split(state["params"])
-        j = mesh.index_of("model")
-        diff, excess, digests = 0.0, -1.0, {}
-        for name, p in state["params"].named_parameters():
-            want = ref[name]
-            if name in split:
-                k = p.shape[0]
-                want = want[j * k:(j + 1) * k]
-            want = want.to(dev)
-            d = (p.detach() - want).abs().nan_to_num(nan=float("inf"))
-            diff = max(diff, float(d.max()))
-            excess = max(excess, float((d - TRAIN_PARAM_ATOL
-                                        - TRAIN_PARAM_RTOL * want.abs())
-                                       .max()))
-            if name not in split:
-                digests[name] = hashlib.sha256(
-                    p.detach().cpu().numpy().tobytes()).hexdigest()
-        del ref, want
-        every = mesh.all_gather_object(digests)
-        replicas_identical = all(e == digests for e in every)
+        diff, excess, replicas_identical = hold_params(
+            state["params"], ref_path, mesh, dev)
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -2811,6 +2873,434 @@ def phase_train_moe_example_ranks(wrappers, log):
                              f"up to {max(diffs)} (tol {TRAIN_LOSS_TOL})")
     require_none_launched("train.moe_example.ranks", launches)
     return launches
+
+
+def tp_config(**over):
+    """TP_ARCH at its published widths, with `over`."""
+    from repro_torch.configs import get
+
+    return dataclasses.replace(get(TP_ARCH), **over)
+
+
+def rows_of(array, mesh):
+    """This rank's data row of a global batch array (local_batch's)."""
+    from repro_torch.launch.sharding import local_batch
+
+    return local_batch({"x": torch.from_numpy(array)}, mesh)["x"].numpy()
+
+
+def tp4_body(rank, world, store, settings, identity_cfg, serve_cfg,
+             train_cfg, refs):
+    """The tensor-parallel phases on one rank, in one spawn:
+    tp.identity on each layout of TP_LAYOUTS (`identity_cfg`, float32:
+    prefill logits gathered over the vocab, greedy tokens, one train
+    step held against the one-process step's parameters at
+    refs["identity"]), serve.tp on TP_SERVE_MESH (`serve_cfg`, full
+    depth, bfloat16: tokens, timings, the exchange log) and train.tp on
+    TP_TRAIN_MESH (`train_cfg`: a held step against refs["train"], then
+    timed steps). Every rank draws every weight from the seeded
+    generator and keeps its slice."""
+    from repro_torch.models import api as mapi
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    globals().update(settings)
+    dev = torch.device(rank_device())
+    cuda = dev.type == "cuda"
+    tcfg = train_ranks_tcfg()
+    out = {"launches": {}, "seconds": {}}
+
+    def launched(before):
+        return {k: v - before[k] for k, v in own_launches().items()}
+
+    start = [time.perf_counter()]
+
+    def lap(phase):  # the phase's launches and wall seconds on this rank
+        out["launches"][phase] = launched(before)
+        out["seconds"][phase] = time.perf_counter() - start[0]
+        start[0] = time.perf_counter()
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if cuda else None
+
+    def fresh():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- tp.identity ----
+    before = own_launches()
+    cfg = identity_cfg
+    for n, axes in enumerate(TP_LAYOUTS):
+        with ep_rank_mesh(rank, world, f"{store}.id{n}", axes) as mesh, \
+                full_float32():
+            model = mapi.build(cfg, mesh=mesh)
+            params = model.init(generator(dev))
+            logits, gen = serve_tokens(
+                model, params, rows_of(prompts(cfg, SERVE_IDENTITY_PROMPT),
+                                       mesh), SERVE_IDENTITY_NEW, dev)
+            del params
+            fresh()
+            state = init_train_state(model, generator(dev), tcfg)
+            state, m = make_train_step(model, tcfg, mesh=mesh)(
+                state, train_batch(cfg, TRAIN_IDENTITY_BATCH, dev))
+            diff, excess, replicas = hold_params(state["params"],
+                                                 refs["identity"], mesh, dev)
+            out[f"identity{n}"] = {
+                "logits": logits, "tokens": gen,
+                "metrics": {k: float(v) for k, v in m.items()},
+                "params_max_abs_diff": diff, "params_worst_excess": excess,
+                "replicas_identical": replicas}
+            del state
+            fresh()
+    lap("tp.identity")
+    # ---- serve.tp ----
+    before = own_launches()
+    cfg = serve_cfg
+    with ep_rank_mesh(rank, world, f"{store}.serve", TP_SERVE_MESH) as mesh:
+        fresh()
+        model = mapi.build(cfg, mesh=mesh)
+        t0 = time.perf_counter()
+        params = model.init(generator(dev))
+        sync(dev)
+        init_s = time.perf_counter() - t0
+        stats = {}
+        logits, gen = serve_tokens(model, params,
+                                   prompts(cfg, SERVE_FULL_PROMPT),
+                                   SERVE_FULL_NEW, dev, stats, mesh)
+        log = mesh.exchange_log()
+        mesh.exchanges = None
+        every = mesh.all_gather_object(gen)
+        out["serve.tp"] = {
+            "tokens": gen, "identical": all(torch.equal(g, gen)
+                                            for g in every),
+            "finite": bool(torch.isfinite(logits).all()), "init_s": init_s,
+            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+            "local_params": sum(p.numel() for p in params.parameters()),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters()),
+            "max_memory_allocated": peak(), "collectives": len(log),
+            "exchanges": exchange_kinds(log)}
+        del params
+    lap("serve.tp")
+    # ---- train.tp ----
+    before = own_launches()
+    cfg = train_cfg
+    with ep_rank_mesh(rank, world, f"{store}.train", TP_TRAIN_MESH) as mesh, \
+            full_float32():
+        model = mapi.build(cfg, mesh=mesh)
+        batch = train_batch(cfg, TP_TRAIN_BATCH, dev)
+        fresh()
+        state = init_train_state(model, generator(dev), tcfg)
+        step = make_train_step(model, tcfg, mesh=mesh)
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(dev)
+        first_s = time.perf_counter() - t0
+        window_peak = peak()  # the window the dry run predicts
+        metrics = {k: float(v) for k, v in m.items()}
+        diff, excess, replicas = hold_params(state["params"], refs["train"],
+                                             mesh, dev)
+        fresh()
+        step_s, losses = [], [metrics["loss"]]
+        for i in range(TRAIN_RANKS_MORE_STEPS):
+            if i == TRAIN_RANKS_MORE_STEPS - 1:
+                mesh.record_exchanges()  # the last step's collectives
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        log = mesh.exchange_log()
+        mesh.exchanges = None
+        out["train.tp"] = {
+            "metrics": metrics, "params_max_abs_diff": diff,
+            "params_worst_excess": excess, "replicas_identical": replicas,
+            "first_step_s": first_s, "step_s": step_s, "losses": losses,
+            "sp": state["params"].seq_parallel(TP_TRAIN_BATCH[1]),
+            "local_params": sum(p.numel() for p in
+                                state["params"].parameters()),
+            "window_max_memory_allocated": window_peak,
+            "steps_max_memory_allocated": peak(),
+            "step_exchanges": exchange_kinds(log)}
+        del state
+    lap("train.tp")
+    return out
+
+
+def tp_oracles(identity_cfg, serve_cfg, train_cfg):
+    """The one-process runs on the card that the TP ranks are held
+    against, each freed before the next: tp.identity's float32 prefill
+    logits, greedy tokens and one train step (its parameters saved for
+    the ranks); serve.tp's bfloat16 tokens, timings and parameter bytes;
+    train.tp's one step (parameters saved). Returns (results, the saved
+    parameters' paths)."""
+    from repro_torch.models import api as mapi
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    tcfg = train_ranks_tcfg()
+    want, refs = {}, {}
+    for key, cfg, batch in (
+            ("identity", identity_cfg, TRAIN_IDENTITY_BATCH),
+            ("train", train_cfg, TP_TRAIN_BATCH)):
+        with full_float32():
+            model = mapi.build(cfg)
+            if key == "identity":
+                params = model.init(generator(DEVICE))
+                want["identity.serve"] = serve_tokens(
+                    model, params, prompts(cfg, SERVE_IDENTITY_PROMPT),
+                    SERVE_IDENTITY_NEW, DEVICE)
+                del params
+            state = init_train_state(model, generator(DEVICE), tcfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = make_train_step(model, tcfg)(
+                state, train_batch(cfg, batch, DEVICE))
+            torch.cuda.synchronize()
+            want[key] = {"metrics": {k: float(v) for k, v in m.items()},
+                         "step_s": time.perf_counter() - t0,
+                         "params": sum(p.numel() for p in
+                                       state["params"].parameters())}
+            refs[key] = os.path.join(WORK_DIR, f"tp-{key}-ref.pt")
+            torch.save({n: p.detach().cpu() for n, p in
+                        state["params"].named_parameters()}, refs[key])
+        del state
+        torch.cuda.empty_cache()
+    model = mapi.build(serve_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(generator(DEVICE))
+    stats = {}
+    _, gen = serve_tokens(model, params, prompts(serve_cfg,
+                                                 SERVE_FULL_PROMPT),
+                          SERVE_FULL_NEW, DEVICE, stats)
+    want["serve"] = {
+        "tokens": gen, "prefill_s": stats["prefill_s"],
+        "decode_s": stats["decode_s"],
+        "params": sum(p.numel() for p in params.parameters()),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in params.parameters()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del params
+    torch.cuda.empty_cache()
+    return want, refs
+
+
+def tp_train_peak(cfg):
+    """train.tp's predicted peak of one rank of TP_TRAIN_MESH: its state
+    drawn and one step, on "meta" (launch/dryrun.peak_bytes; the ranks'
+    shapes are the same). Fails if the ranks' sum exceeds
+    TRAIN_RANKS_BUDGET."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import layout_mesh
+    from repro_torch.models import api as mapi
+
+    mesh = layout_mesh(TP_TRAIN_MESH, 0)
+    batch = to_meta(train_batch(cfg, TP_TRAIN_BATCH, "cpu"))
+    peak = dryrun.peak_bytes(train_ranks_window, mapi.build(cfg, mesh=mesh),
+                             mesh, train_ranks_tcfg(), batch, "meta")
+    if mesh.world * peak > TRAIN_RANKS_BUDGET:
+        raise AssertionError(f"train.tp: {mesh.world} ranks of {peak} B "
+                             f"exceed {TRAIN_RANKS_BUDGET} B")
+    return peak
+
+
+def phase_tp(wrappers, log):
+    """tp.identity, serve.tp and train.tp: tensor parallelism (TP_ARCH,
+    `attn_sharding="heads"`) over EP_RANKS gloo ranks on the card. The
+    one-process oracles run first on the card (tp_oracles), then the
+    ranks (tp4_body), then the holds:
+
+      tp.identity  TP_IDENTITY_LAYERS deep, float32, on each layout of
+                   TP_LAYOUTS: prefill logits within TP_TOL, greedy
+                   tokens identical, one train step's loss within
+                   TP_TOL, each rank's gradient norm within
+                   TRAIN_GRAD_NORM_RTOL, parameters within
+                   train.identity's bounds, replicas identical;
+      serve.tp     full depth, bfloat16, on TP_SERVE_MESH: tokens
+                   identical on every rank (and how many equal the one
+                   process's), parameter bytes a rank against the one
+                   process's, prefill and decode ms, tokens/s, peaks,
+                   each collective's calls, bytes and ms;
+      train.tp     TP_TRAIN_LAYERS deep, float32 masters, on
+                   TP_TRAIN_MESH with sequence parallelism: one step held
+                   as tp.identity's, then TRAIN_RANKS_MORE_STEPS timed;
+                   the window's peak against the dry run's.
+
+    Returns the phases' launches (the parent's with the first)."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    identity_cfg = tp_config(n_layers=TP_IDENTITY_LAYERS, dtype="float32",
+                             remat=False)
+    serve_cfg = tp_config()
+    train_cfg = tp_config(n_layers=TP_TRAIN_LAYERS, dtype="float32",
+                          remat=False)
+    t0 = time.perf_counter()
+    predicted = tp_train_peak(train_cfg)
+    dry_s = time.perf_counter() - t0
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    want, refs = tp_oracles(identity_cfg, serve_cfg, train_cfg)
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        with stdout_to(log):
+            ranks = spawn_ranks(tp4_body, EP_RANKS, rank_settings(),
+                                identity_cfg, serve_cfg, train_cfg, refs)
+    finally:
+        for path in refs.values():
+            os.remove(path)
+    spawn_s = time.perf_counter() - t0
+    by_phase = {"tp.identity": read_launches(
+        wrappers, [r["launches"]["tp.identity"] for r in ranks])}
+    for phase in ("serve.tp", "train.tp"):
+        by_phase[phase] = {n: sum(r["launches"][phase][n] for r in ranks)
+                           for n in wrappers}
+    # ---- tp.identity ----
+    logits, gen = want["identity.serve"]
+    ref = want["identity"]["metrics"]
+    failed = []
+    for n, axes in enumerate(TP_LAYOUTS):
+        got = [r[f"identity{n}"] for r in ranks]
+        m = axes["model"]
+        rows = [got[g * m] for g in range(axes["data"])]
+        errs = [float((torch.cat([r["logits"] for r in rows]) - logits)
+                      .abs().nan_to_num(nan=float("inf")).max())]
+        same = torch.equal(torch.cat([r["tokens"] for r in rows]), gen) \
+            and all(torch.equal(r["tokens"], got[i - i % m]["tokens"])
+                    for i, r in enumerate(got))
+        loss_diff = max(abs(r["metrics"]["loss"] - ref["loss"]) for r in got)
+        gn_rel = max(abs(r["metrics"]["grad_norm"] - ref["grad_norm"])
+                     for r in got) / abs(ref["grad_norm"])
+        excess = max(r["params_worst_excess"] for r in got)
+        replicas = all(r["replicas_identical"] for r in got)
+        emit(phase="tp.identity", arch=TP_ARCH, layers=TP_IDENTITY_LAYERS,
+             dtype="float32", ranks=EP_RANKS, backend="gloo", mesh=axes,
+             requests=SERVE_REQUESTS, prompt=SERVE_IDENTITY_PROMPT,
+             new_tokens=SERVE_IDENTITY_NEW, prefill_logits_max_abs_diff=errs,
+             tol=TP_TOL, tokens_identical=same,
+             train_batch=list(TRAIN_IDENTITY_BATCH),
+             loss_max_abs_diff=loss_diff, grad_norm_rel_diff=gn_rel,
+             grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
+             params_max_abs_diff=max(r["params_max_abs_diff"] for r in got),
+             params_tol=[TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL],
+             params_worst_excess=excess, replicas_identical=replicas,
+             one_process_metrics=ref, metrics=[r["metrics"] for r in got],
+             rank_seconds=[r["seconds"]["tp.identity"] for r in ranks],
+             launches=by_phase["tp.identity"], card=SMI)
+        if not (max(errs) <= TP_TOL and same and loss_diff <= TP_TOL
+                and gn_rel <= TRAIN_GRAD_NORM_RTOL and excess <= 0
+                and replicas):
+            failed.append(axes)
+    if failed:
+        raise AssertionError(f"tp.identity: layouts {failed} outside their "
+                             "bounds (the tp.identity lines)")
+    require_none_launched("tp.identity", by_phase["tp.identity"])
+    # ---- serve.tp ----
+    one = want["serve"]
+    runs = [r["serve.tp"] for r in ranks]
+    gen = runs[0]["tokens"]
+    identical = all(r["identical"] and torch.equal(r["tokens"], gen)
+                    for r in runs)
+    finite = all(r["finite"] for r in runs)
+    cfg = serve_cfg
+    per_step = 2 * cfg.n_layers + 2  # embed, 2 a block, the pick
+    rows = []
+    for r in runs:
+        dec = r["decode_s"]
+        rows.append({
+            "max_memory_allocated": r["max_memory_allocated"],
+            "param_bytes": r["param_bytes"], "local_params": r["local_params"],
+            "init_s": r["init_s"], "prefill_ms": r["prefill_s"] * 1e3,
+            "decode_ms_median": statistics.median(dec) * 1e3,
+            "decode_ms_min": min(dec) * 1e3, "decode_ms_max": max(dec) * 1e3,
+            "tokens_per_s": SERVE_REQUESTS * len(dec)
+            / (r["prefill_s"] + sum(dec)),
+            "collectives": r["collectives"], "exchanges": r["exchanges"]})
+    one_dec = one["decode_s"]
+    emit(phase="serve.tp", arch=TP_ARCH, layers=cfg.n_layers,
+         dtype=cfg.dtype, ranks=EP_RANKS, backend="gloo", mesh=TP_SERVE_MESH,
+         requests=SERVE_REQUESTS, prompt=SERVE_FULL_PROMPT,
+         new_tokens=SERVE_FULL_NEW, tokens_identical_on_every_rank=identical,
+         logits_finite=finite,
+         tokens_equal_to_one_process=int((gen == one["tokens"]).sum()),
+         tokens=int(gen.numel()), per_rank=rows,
+         one_process={"params": one["params"],
+                      "param_bytes": one["param_bytes"],
+                      "max_memory_allocated": one["max_memory_allocated"],
+                      "prefill_ms": one["prefill_s"] * 1e3,
+                      "decode_ms_median": statistics.median(one_dec) * 1e3,
+                      "decode_ms_min": min(one_dec) * 1e3,
+                      "decode_ms_max": max(one_dec) * 1e3,
+                      "tokens_per_s": SERVE_REQUESTS * len(one_dec)
+                      / (one["prefill_s"] + sum(one_dec))},
+         collectives_a_decode_step=per_step, spawn_s=spawn_s,
+         oracles_s=oracle_s,
+         rank_seconds=[r["seconds"]["serve.tp"] for r in ranks],
+         sample_tokens=gen[0, :8].tolist(),
+         clock=("device: CUDA events on each rank's stream around the gloo "
+                "collective, which stages through host memory"),
+         launches=by_phase["serve.tp"], card=SMI)
+    calls = per_step * (SERVE_FULL_NEW + 1)  # the prefill's step, 32 more
+    if not (identical and finite and tuple(gen.shape) == (
+            SERVE_REQUESTS, SERVE_FULL_NEW)
+            and all(r["collectives"] == calls for r in runs)):
+        raise AssertionError(f"serve.tp: tokens identical on every rank "
+                             f"{identical}, finite {finite}, shape "
+                             f"{tuple(gen.shape)}, collectives "
+                             f"{[r['collectives'] for r in runs]} (want "
+                             f"{calls})")
+    require_none_launched("serve.tp", by_phase["serve.tp"])
+    # ---- train.tp ----
+    ref = want["train"]["metrics"]
+    runs = [r["train.tp"] for r in ranks]
+    loss_diff = max(abs(r["metrics"]["loss"] - ref["loss"]) for r in runs)
+    gn_rel = max(abs(r["metrics"]["grad_norm"] - ref["grad_norm"])
+                 for r in runs) / abs(ref["grad_norm"])
+    excess = max(r["params_worst_excess"] for r in runs)
+    replicas = all(r["replicas_identical"] for r in runs)
+    sp = all(r["sp"] for r in runs)
+    emit(phase="train.tp", arch=TP_ARCH, layers=TP_TRAIN_LAYERS,
+         params=want["train"]["params"], dtype="float32",
+         batch=list(TP_TRAIN_BATCH), ranks=EP_RANKS, backend="gloo",
+         mesh=TP_TRAIN_MESH, sequence_parallel=sp,
+         predicted_rank_peak_bytes=predicted, budget_bytes=TRAIN_RANKS_BUDGET,
+         dryrun_s=dry_s, one_process_metrics=ref,
+         one_process_step_ms=want["train"]["step_s"] * 1e3,
+         metrics=[r["metrics"] for r in runs], loss_max_abs_diff=loss_diff,
+         loss_tol=TP_TOL, grad_norm_rel_diff=gn_rel,
+         grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
+         params_max_abs_diff=max(r["params_max_abs_diff"] for r in runs),
+         params_tol=[TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL],
+         params_worst_excess=excess, replicas_identical=replicas,
+         first_step_ms=[r["first_step_s"] * 1e3 for r in runs],
+         step_ms_median=[statistics.median(r["step_s"]) * 1e3 for r in runs],
+         step_ms_min=[min(r["step_s"]) * 1e3 for r in runs],
+         step_ms_max=[max(r["step_s"]) * 1e3 for r in runs],
+         tokens_per_s=[TP_TRAIN_BATCH[0] * TP_TRAIN_BATCH[1]
+                       / statistics.median(r["step_s"]) for r in runs],
+         losses=[r["losses"] for r in runs],
+         local_params=[r["local_params"] for r in runs],
+         window_max_memory_allocated=[r["window_max_memory_allocated"]
+                                      for r in runs],
+         window_predicted_over_measured=[
+             predicted / r["window_max_memory_allocated"] for r in runs
+             if r["window_max_memory_allocated"]],
+         steps_max_memory_allocated=[r["steps_max_memory_allocated"]
+                                     for r in runs],
+         step_exchanges=runs[0]["step_exchanges"],
+         rank_seconds=[r["seconds"]["train.tp"] for r in ranks],
+         launches=by_phase["train.tp"], card=SMI)
+    if not (sp and loss_diff <= TP_TOL and gn_rel <= TRAIN_GRAD_NORM_RTOL
+            and excess <= 0 and replicas and all(
+                np.isfinite(r["losses"]).all() for r in runs)):
+        raise AssertionError(f"train.tp: sequence parallel {sp}, loss "
+                             f"differs by {loss_diff}, the gradient norm by "
+                             f"{gn_rel} (relative), parameters exceed their "
+                             f"bound by {excess}, replicas identical "
+                             f"{replicas}")
+    require_none_launched("train.tp", by_phase["train.tp"])
+    return by_phase
 
 
 def family_config(family, **over):
@@ -3007,8 +3497,9 @@ def phase_family_serve(family, wrappers):
 
 
 def phase_hybrid_train(wrappers, costs):
-    """hymba-1.5b at its published widths and depth, bfloat16 compute
-    over float32 masters, remat on: HYBRID_TRAIN_STEPS AdamW steps on one
+    """hymba-1.5b at its published widths, HYBRID_TRAIN_LAYERS deep,
+    bfloat16 compute over float32 masters, remat on: HYBRID_TRAIN_STEPS
+    AdamW steps on one
     repeated batch of HYBRID_TRAIN_BATCH from the training pipeline; each
     step's loss (finite, the last below the first), step ms, tokens/s,
     peak memory; then `hybrid.train.split`, one more step traced."""
@@ -3018,7 +3509,7 @@ def phase_hybrid_train(wrappers, costs):
     from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                               make_train_step)
 
-    cfg = family_config("hybrid")
+    cfg = family_config("hybrid", n_layers=HYBRID_TRAIN_LAYERS)
     model = mapi.build(cfg)
     tcfg = TrainConfig(opt=OptConfig(warmup_steps=2,
                                      total_steps=HYBRID_TRAIN_STEPS),
@@ -3297,7 +3788,10 @@ def run(log):
         "train.moe_example.ranks", phase_train_moe_example_ranks, wrappers,
         log)
 
-    # ---- 17. the other families: vlm, mla, ssm, hybrid, encdec ----
+    # ---- 17. tensor parallelism: gloo ranks on the one card ----
+    by_phase.update(timed("tp", phase_tp, wrappers, log))
+
+    # ---- 18. the other families: vlm, mla, ssm, hybrid, encdec ----
     for family in FAMILY_ARCHS:
         by_phase[f"{family}.identity"] = timed(
             f"{family}.identity", phase_family_identity, family, wrappers)
@@ -3307,7 +3801,7 @@ def run(log):
                                      wrappers, costs)
     emit_cost_flops(costs)
 
-    # ---- 19. the kernels line, then the ok line ----
+    # ---- 20. the kernels line, then the ok line ----
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_phase"] = {p: c[row["name"]]

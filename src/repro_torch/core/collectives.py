@@ -1,27 +1,52 @@
-"""The collectives of the sort and of the MoE dispatch across ranks.
+"""The collectives of the sort, of the MoE dispatch and of tensor
+parallelism across ranks.
 
 Counterparts of the jax.lax collectives that the reference calls under
 shard_map (src/repro/core/exoshuffle.py, payload.py, streaming.py,
-moe_dispatch.py):
+moe_dispatch.py), and of the ones GSPMD inserts for its
+tensor-parallel placements (src/repro/launch/sharding.py):
 
   all_to_all(tiled=True) -> all_to_all_tiled: one all_to_all_single,
                             over every rank or along one mesh axis
   pmax(flag) > 0         -> any_across: one all_reduce(MAX) of an int32
+  pmax(x, axis)          -> pmax: one all_reduce(MAX) of a float, no
+                            gradient (the vocab-parallel loss's shift)
   axis_index             -> worker_ids: the rank's global worker ids
                             (RankMesh.index_of for a named axis)
   psum(x, axis)          -> psum: one all_reduce(SUM) along an axis
+  all_gather / reduce-scatter of the sequence (Megatron-SP)
+                         -> all_gather_seq / reduce_scatter_seq
+  argmax of vocab-sharded logits
+                         -> sharded_argmax: one all_gather of each
+                            rank's (max, global index)
 
-The MoE path takes gradients through them, in Megatron's sense of a
-computation replicated over the model axis whose loss counts once:
-all_to_all_tiled's backward is the same exchange (an equal-split
-all_to_all is its own inverse); psum's backward passes the gradient
-through; psum_grad is the identity forward and psum backward (on a
-replicated input that each rank uses only in part); split_rows keeps
-this rank's slice of a replicated tensor and all-gathers the slices'
-gradients backward, and gather_rows all-gathers the slices and keeps
-this rank's slice of the gradient backward (not summed: every rank
-holds the whole, identical upstream gradient). A plain all_gather with a
-reduce-scatter backward would multiply the gradient by the axis size.
+Gradients follow Megatron's conventions. A region is either replicated
+over the model axis (every rank holds the whole tensor and, backward,
+the whole and identical gradient: the loss counts once) or split (each
+rank holds its part and its part's gradient):
+
+  psum           partial -> replicated: backward passes the gradient
+                 through;
+  psum_grad      replicated -> partial work (a column-parallel product):
+                 identity forward, backward sums the ranks' parts;
+  split_rows     replicated -> this rank's rows: backward all-gathers
+                 the slices' gradients;
+  gather_rows    rows -> replicated: backward keeps this rank's slice of
+                 the (whole, identical) gradient, unsummed;
+  all_gather_seq sequence slices -> the whole sequence, into partial
+                 work (column-parallel products): backward
+                 reduce-scatters, summing the ranks' partial gradients;
+  reduce_scatter_seq
+                 partial sums -> this rank's sequence slice of the sum:
+                 backward all-gathers the slices' gradients;
+  all_to_all_tiled
+                 its backward is the same exchange (an equal-split
+                 all_to_all is its own inverse).
+
+So the two gathers differ in what follows them: after all_gather_seq
+each rank's gradient is a partial sum and the reduce-scatter is right;
+after gather_rows the work is replicated, and a reduce-scatter there
+would multiply the gradient by the axis size.
 
 With `mesh=None` (one process holds all W workers as its batch axis)
 each is what the port did before it had ranks: a transpose, `any()` and
@@ -33,7 +58,8 @@ by deciding them on values that are already the same on every rank
 u32 data travels as its int32 bit storage (kernels/u32.py): NCCL and
 gloo move it without widening. On "meta" tensors (a dry run of one
 rank, launch/mesh.layout_mesh) a collective returns its result's shape
-and moves nothing.
+and moves nothing. Each collective on a mesh is logged by
+`record_exchanges`.
 """
 from __future__ import annotations
 
@@ -253,6 +279,129 @@ def gather_rows(x: torch.Tensor, mesh, axis: str, *,
                   x, mesh, axis, what)
 
 
+def _moved(fn, x, dim):
+    """fn applied along `dim` of x (fn works on dim 0)."""
+    return fn(x.movedim(dim, 0)).movedim(0, dim)
+
+
+def _reduce_scatter_rows(x: torch.Tensor, mesh, axis, what: str
+                         ) -> torch.Tensor:
+    """Dim 0 of x in n equal blocks (n ranks along `axis`): this rank's
+    block of the sum over the ranks, added in index order. One
+    all_to_all_single carries the blocks (gloo and NCCL both move it,
+    on the CPU and on a card)."""
+    n = mesh.size_of(axis)
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not split over {n} ranks "
+                         f"along {axis!r}")
+    x = x.contiguous()
+    t = x.shape[0] // n
+    if x.is_meta:
+        return torch.empty((t,) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device="meta")
+    recv = torch.empty_like(x)
+    _logged(mesh, what, x.numel() * x.element_size(), x.is_cuda,
+            lambda: dist.all_to_all_single(recv, x,
+                                           group=mesh.group_of(axis)))
+    parts = recv.reshape((n, t) + tuple(x.shape[1:]))
+    out = parts[0].clone()
+    for i in range(1, n):
+        out += parts[i]
+    return out
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, what, dim):
+        ctx.args = (mesh, axis, what, dim)
+        return _moved(lambda t: _all_gather_rows(t, mesh, axis, what), x,
+                      dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, what, dim = ctx.args
+        return (_moved(lambda t: _reduce_scatter_rows(t, mesh, axis,
+                                                      what + ".grad"),
+                       grad, dim), None, None, None, None)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, what, dim):
+        ctx.args = (mesh, axis, what, dim)
+        return _moved(lambda t: _reduce_scatter_rows(t, mesh, axis, what),
+                      x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, what, dim = ctx.args
+        return (_moved(lambda t: _all_gather_rows(t, mesh, axis,
+                                                  what + ".grad"),
+                       grad, dim), None, None, None, None)
+
+
+def all_gather_seq(x: torch.Tensor, mesh, axis: str = "model", *,
+                   dim: int = 1, what: str = "seq.gather") -> torch.Tensor:
+    """Every rank's slice of `dim` along `axis`, concatenated in index
+    order (Megatron-SP's all-gather before a column-parallel product).
+    Backward: the gradient reduce-scattered along `dim`, each rank's
+    slice of the sum of the ranks' partial gradients."""
+    if mesh.size_of(axis) == 1:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GatherSeq.apply(x, mesh, axis, what, dim)
+    return _moved(lambda t: _all_gather_rows(t, mesh, axis, what), x, dim)
+
+
+def reduce_scatter_seq(x: torch.Tensor, mesh, axis: str = "model", *,
+                       dim: int = 1, what: str = "seq.scatter"
+                       ) -> torch.Tensor:
+    """This rank's slice of `dim` (index i of n: [i * S/n, (i + 1) * S/n))
+    of x summed over the ranks along `axis` (Megatron-SP's reduce-scatter
+    after a row-parallel product). Backward: the slices' gradients
+    all-gathered."""
+    if mesh.size_of(axis) == 1:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _ScatterSeq.apply(x, mesh, axis, what, dim)
+    return _moved(lambda t: _reduce_scatter_rows(t, mesh, axis, what), x,
+                  dim)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str, *,
+         what: str = "pmax") -> torch.Tensor:
+    """The elementwise max of x over the ranks along `axis`
+    (all_reduce(MAX)); every rank gets the same bytes. No gradient (the
+    vocab-parallel loss's shift, whose gradient cancels)."""
+    out = x.detach().clone()
+    if mesh.size_of(axis) > 1 and not out.is_meta:
+        _logged(mesh, what, out.numel() * out.element_size(), out.is_cuda,
+                lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                                        group=mesh.group_of(axis)))
+    return out
+
+
+def sharded_argmax(x: torch.Tensor, mesh, axis: str = "model", *,
+                   what: str = "argmax") -> torch.Tensor:
+    """torch.argmax(dim=-1) of the tensor whose last dim is split over the
+    ranks along `axis` in index order (rank i holds [i * V/n, (i + 1) *
+    V/n)): int64 global indices, the same on every rank. Each rank's
+    (max, global index of its first max) is all-gathered as float64
+    (exact for float32 values and indices below 2^53); the largest value
+    wins, and a tie goes to the lowest index — the first rank holding
+    it — as torch.argmax takes the first maximal value."""
+    v, i = x.max(dim=-1)
+    gi = i + mesh.index_of(axis) * x.shape[-1]
+    if mesh.size_of(axis) == 1:
+        return gi
+    pair = torch.stack([v.double(), gi.double()], dim=-1)
+    parts = _all_gather_rows(pair.unsqueeze(0), mesh, axis, what)
+    vals = parts[..., 0]
+    best = vals.max(dim=0, keepdim=True).values
+    win = (vals == best).to(torch.int8).argmax(dim=0, keepdim=True)
+    return parts[..., 1].gather(0, win)[0].long()
+
+
 def any_across(flag, mesh=None) -> bool:
     """True if `flag` (a bool tensor of any shape, or a bool) is set
     anywhere on any rank: the reference's pmax(flag) > 0. On a mesh the
@@ -276,5 +425,6 @@ def worker_ids(mesh, num_workers: int, device) -> torch.Tensor:
                         device=device)
 
 
-__all__ = ["all_to_all_tiled", "any_across", "gather_rows", "psum",
-           "psum_grad", "split_rows", "worker_ids"]
+__all__ = ["all_gather_seq", "all_to_all_tiled", "any_across",
+           "gather_rows", "pmax", "psum", "psum_grad", "reduce_scatter_seq",
+           "sharded_argmax", "split_rows", "worker_ids"]

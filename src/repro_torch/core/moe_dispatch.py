@@ -354,7 +354,8 @@ def ep_replicated(x, weights, ids, expert_params, *, cfg: MoeDispatchConfig,
 
 
 def ep_replicated_ranks(x, weights, ids, expert_params, *,
-                        cfg: MoeDispatchConfig, expert_fn, mesh):
+                        cfg: MoeDispatchConfig, expert_fn, mesh,
+                        reduce: bool = True):
     """The decode dispatch on one rank of `mesh` (the reference's
     ep_replicated_shard): x (T, d), weights/ids (T, K) the same on every
     rank of a "model" subgroup; expert_params this rank's E/ep experts.
@@ -362,7 +363,8 @@ def ep_replicated_ranks(x, weights, ids, expert_params, *,
     subgroup (all_reduce: every rank gets the same bytes). Gradients: the
     tokens' and the routing weights' are summed over the subgroup too
     (each rank computes only its bank's part of them). Returns (T,
-    d_out)."""
+    d_out); with `reduce=False`, the rank's part unsummed (the caller
+    adds other partial sums to it before its own psum)."""
     ep = mesh.size_of("model")
     e_local = cfg.num_experts // ep
     x = psum_grad(x, mesh, "model", what="moe.psum")
@@ -370,4 +372,4 @@ def ep_replicated_ranks(x, weights, ids, expert_params, *,
     part = _local_experts(x, weights, ids, expert_params,
                           lo=mesh.index_of("model") * e_local,
                           e_local=e_local, expert_fn=expert_fn)
-    return psum(part, mesh, "model", what="moe.psum")
+    return psum(part, mesh, "model", what="moe.psum") if reduce else part

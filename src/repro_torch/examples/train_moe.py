@@ -3,7 +3,7 @@ steps — the paper's technique inside a real training loop.
 
   PYTHONPATH=src python -m repro_torch.examples.train_moe --steps 300 \
       [--device cuda|cuda:i|cpu] [--ckpt-dir DIR] [--ranks 8]
-      [--backend nccl|gloo]
+      [--mesh data=D,model=M] [--backend nccl|gloo]
 
 Twin of examples/train_moe.py: a scaled qwen2-moe family config (8
 experts, top-2, d_model 256, sort dispatch, capacity factor 2.0,
@@ -11,9 +11,13 @@ float32) with the exoshuffle epoch-shuffled data pipeline, checkpointing
 every 100 steps. The reference routes over the model axis of a 2x4 mesh
 of devices. With --ranks 8 (or under torchrun with 8 ranks) so does
 this: 8 ranks of one torch.distributed group (launch/mesh.py) with axes
-data 2 x model 4, each holding 2 of the 8 experts and its data row of
-every batch, the dispatch's all_to_all over its "model" subgroup and
-the gradients averaged over "data" (train/train_step.py). Without
+data 2 x model 4, each holding 2 of the 8 experts, 1/4 of every
+projection, of the shared experts' width and of the vocabulary
+(tensor parallelism, with the sequence split between the blocks), and
+its data row of every batch; the dispatch's all_to_all runs over its
+"model" subgroup and the gradients are averaged over "data"
+(train/train_step.py). --mesh data=D,model=M trains over another
+layout of D * M ranks. Without
 ranks, that mesh is a batch axis of the dispatch (dp=2 data shards x
 ep_size=4 expert shards, core/moe_dispatch.sort_dispatch) in one
 process. The weights are drawn from a torch.Generator seeded 0 on the
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 import torch
@@ -31,8 +36,8 @@ import torch
 from repro_torch.configs import get
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.kernels import u32
-from repro_torch.launch.mesh import (init_rank_mesh, spawn_ranks,
-                                     under_torchrun)
+from repro_torch.launch.mesh import (init_rank_mesh, parse_axes,
+                                     spawn_ranks, under_torchrun)
 from repro_torch.launch.sharding import rank_split
 from repro_torch.models import api as mapi
 from repro_torch.train import checkpoint as ckpt
@@ -68,6 +73,9 @@ def _parser():
                     help="1, or the ranks of the reference's data 2 x "
                          "model 4 mesh (spawned here unless run under "
                          "torchrun)")
+    ap.add_argument("--mesh", type=parse_axes, default=None,
+                    help="data=D,model=M: train over D * M ranks of this "
+                         "layout instead of the reference's")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                     help="collective backend of the ranks (default: nccl "
                          "on cuda, gloo on cpu)")
@@ -81,15 +89,17 @@ def main(argv=None, *, params=None):
     "params", "ranks", "mesh"} (over ranks, rank 0's; every rank's
     losses must be the same)."""
     args = _parser().parse_args(argv)
+    axes = args.mesh or MESH
+    world = math.prod(axes.values())
     if under_torchrun():
-        with init_rank_mesh(DP * EP, backend=args.backend, device=args.device,
-                            axes=MESH) as mesh:
+        with init_rank_mesh(world, backend=args.backend, device=args.device,
+                            axes=axes) as mesh:
             return run(args, mesh)
-    if args.ranks == 1:
+    if args.ranks == 1 and args.mesh is None:
         return run(args, None, params)
     if params is not None:
         raise ValueError("train_moe: params= is for one process")
-    out = spawn_ranks(_rank_main, args.ranks, args)
+    out = spawn_ranks(_rank_main, world, args, axes)
     for r in out[1:]:
         if r["losses"] != out[0]["losses"]:
             raise RuntimeError(f"train_moe: rank {r['rank']}'s losses "
@@ -98,10 +108,10 @@ def main(argv=None, *, params=None):
     return out[0]
 
 
-def _rank_main(rank: int, world: int, store_path: str, args) -> dict:
-    with init_rank_mesh(DP * EP, backend=args.backend, device=args.device,
+def _rank_main(rank: int, world: int, store_path: str, args, axes) -> dict:
+    with init_rank_mesh(world, backend=args.backend, device=args.device,
                         rank=rank, world=world, store_path=store_path,
-                        axes=MESH) as mesh:
+                        axes=axes) as mesh:
         return run(args, mesh)
 
 
@@ -140,9 +150,10 @@ def run(args, mesh, params=None) -> dict:
             ckpt.save(state, args.ckpt_dir, step + 1, mesh=mesh)
             if lead:
                 print(f"checkpointed at {step + 1}")
-    # the whole model's parameters: a rank holds 1/EP of each expert bank
+    # the whole model's parameters: a rank holds 1/tp of each split one
     split = rank_split(state["params"])
-    n_params = sum(p.numel() * (EP if n in split else 1)
+    tp = 1 if mesh is None else mesh.size_of("model")
+    n_params = sum(p.numel() * (tp if n in split else 1)
                    for n, p in state["params"].named_parameters())
     losses = [float(x) for x in losses]
     if lead:

@@ -205,6 +205,16 @@ def check_axes(axes, world: int) -> dict:
     return axes
 
 
+def parse_axes(text: str) -> dict:
+    """"data=D,model=M" (a command line's --mesh) -> {"data": D, "model":
+    M}, checked by check_axes."""
+    axes = {}
+    for part in text.split(","):
+        name, _, size = part.partition("=")
+        axes[name.strip()] = int(size)
+    return check_axes(axes, math.prod(axes.values()))
+
+
 def _unravel(rank: int, sizes) -> list[int]:
     sizes = list(sizes)
     out = []
@@ -355,12 +365,17 @@ def spawn_ranks(fn, world: int, *args) -> list:
     is a fresh FileStore path for init_rank_mesh; `fn` and its results
     pickle. Each rank runs torch with an equal share of the host's cores
     as threads (the ranks share one host). A rank that raises makes this
-    raise, with its traceback, after the others are stopped."""
+    raise, with its traceback, after the others are stopped. `fn` and
+    `args` reach the ranks through a file: pickled into each process's
+    start-up pipe, arguments larger than the pipe's buffer would hold the
+    parent until that child had started, one child after another."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
-        mp.start_processes(_spawned, args=(fn, world, tmp, args),
-                           nprocs=world, start_method="spawn", join=True)
+        with open(os.path.join(tmp, "call.pkl"), "wb") as f:
+            pickle.dump((fn, args), f)
+        mp.start_processes(_spawned, args=(world, tmp), nprocs=world,
+                           start_method="spawn", join=True)
         results = []
         for rank in range(world):
             with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
@@ -368,8 +383,10 @@ def spawn_ranks(fn, world: int, *args) -> list:
     return results
 
 
-def _spawned(rank: int, fn, world: int, tmp: str, args) -> None:
+def _spawned(rank: int, world: int, tmp: str) -> None:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    with open(os.path.join(tmp, "call.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
     result = fn(rank, world, os.path.join(tmp, "rendezvous"), *args)
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
@@ -395,4 +412,4 @@ def flat_axes_of(mesh: RankMesh) -> tuple[str, ...]:
 
 __all__ = ["AXIS_NAMES", "DEFAULT_TIMEOUT_S", "RankMesh", "check_axes",
            "flat_axes_of", "init_rank_mesh", "layout_mesh", "make_test_mesh",
-           "spawn_ranks", "under_torchrun"]
+           "parse_axes", "spawn_ranks", "under_torchrun"]

@@ -9,8 +9,10 @@ holds full arrays and a manifest (train/checkpoint.py, the reference's
 format), so one written by any run, or by the JAX package, restores
 onto any device: `load` checks each leaf's crc32 and places it there.
 The reference places the leaves on a new mesh with the NamedShardings of
-launch/sharding.py; multi-card meshes are out of this port's scope, so
-`launch/mesh.py` and `launch/sharding.py` have no twin.
+launch/sharding.py. Its twins exist (launch/mesh.py's RankMesh,
+launch/sharding.py's rules, and `checkpoint.load(..., mesh=)`, which
+gives each rank its slice), but this driver restores onto one device
+only: resharding across ranks is ROADMAP.md §1 item 4.
 """
 from __future__ import annotations
 

@@ -23,17 +23,34 @@ PartitionSpec holds. A mesh is a RankMesh, any object with the
 reference's `shape` and `axis_names`, or a dict {axis name: size}: the
 rules read only the axes' names and sizes, so they need no devices.
 
-The rank path (launch/mesh.RankMesh) applies two of these answers: the
-expert banks are split over "model" on their expert axis (models/moe.py:
-a rank holds E/ep experts, `rank_split` names them), and the batch over
-the data axes (`local_batch`). Every other parameter stays replicated
-over the ranks, and qwen2-moe's `param_sharding="fsdp"` split of the
-experts' d over "data" is not applied. These deviations from the rules
-are in layout only, never in numerics: a replicated parameter computes
-what its shards would.
+The rank path (launch/mesh.RankMesh) executes the rules' "model" entries
+and their batch answer (`local_batch`: the batch over the data axes).
+`split_dims` reads, from `param_pspecs` on the one-process shapes, the
+dim of each tensor that a spec puts over "model", mapped to the port's
+state names through models/naming; a model built on a rank keeps its
+1/tp slice of each along that dim (`rank_split` names them), and
+params_from_reference, checkpoint.save/load and the optimizer's norm
+read the same answer. Which tensors that is:
+
+  - the transformer family's `attn_sharding="heads"` configs: every
+    projection, FFN and shared-expert weight, the tied embedding's vocab
+    and (MoE) the expert banks' expert axis (TP and EP);
+  - any other MoE config: its expert banks (EP); every other config:
+    nothing, it is replicated on a rank.
+
+Not executed, and recorded in ROADMAP.md §1: the data-axis entries
+(FSDP, `param_sharding="fsdp"`: every split tensor stays whole along
+its other dim), the norm scales that the fallback rule puts over
+"model" by their size alone (a d-vector each: a rank keeps it whole, as
+gathering it at every use would cost a collective a norm), the
+sequence-parallel caches of batch < dp, and the KV-heads-below-tp case
+(`cache_pspecs`' sequence over "model"), which raises. These are
+deviations in layout only, never in numerics: a replicated tensor
+computes what its shards would.
 """
 from __future__ import annotations
 
+import functools
 import math
 from collections.abc import Mapping
 from typing import Any
@@ -242,18 +259,103 @@ def logits_pspec(cfg: ArchConfig, mesh) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def _has(entry, axis: str) -> bool:
+    return entry == axis or (isinstance(entry, tuple) and axis in entry)
+
+
+def _model_dims(cfg: ArchConfig, shapes, mesh, stacked=STACKED
+                ) -> dict[str, int]:
+    """{port state name: dim} of every tensor whose spec puts "model" on
+    one of its dims (`shapes`: {port name: one-process shape}; `stacked`:
+    the prefixes the reference stacks, a model's `.stacked`); a stacked
+    leaf's layer axis is not counted, so the dim is the per-layer
+    tensor's. The data-axis entries are dropped."""
+    specs = param_pspecs(cfg, shapes, mesh)
+    out = {}
+    for key, names in layer_groups(shapes, stacked).items():
+        spec = specs[key.replace(".", "/")]
+        if names[0] != key:  # stacked: the spec's first entry is the layers'
+            spec = spec[1:]
+        dims = [i for i, e in enumerate(spec) if _has(e, "model")]
+        for name in names:
+            if dims:
+                out[name] = dims[0]
+    return out
+
+
+def is_tensor_parallel(cfg: ArchConfig) -> bool:
+    """The configs whose attention, FFN and vocab the rank path splits:
+    the dense and MoE families' `attn_sharding="heads"` configs."""
+    return cfg.family in ("dense", "moe") and cfg.attn_sharding == "heads"
+
+
+def _executed(cfg: ArchConfig, name: str) -> bool:
+    """Whether the rank path executes the rules' "model" entry of `name`
+    (see the module docstring): an MoE's expert banks, and under tensor
+    parallelism everything but the norm scales."""
+    *_, parent, key = name.split(".")
+    if cfg.is_moe and parent == "ffn" and key in ("w_gate", "w_up",
+                                                  "w_down"):
+        return True
+    return is_tensor_parallel(cfg) and key != "scale"
+
+
+@functools.lru_cache(maxsize=None)
+def _split_dims(cfg: ArchConfig, axes: tuple) -> dict[str, int]:
+    from repro_torch.models.api import new_model  # models import this module
+
+    axes = dict(axes)
+    if axes.get("model", 1) == 1 or not (is_tensor_parallel(cfg)
+                                         or cfg.is_moe):
+        return {}
+    model = new_model(cfg, None)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    return {name: dim for name, dim in
+            _model_dims(cfg, shapes, axes, model.stacked).items()
+            if _executed(cfg, name)}
+
+
+def split_dims(cfg: ArchConfig, mesh) -> dict[str, int]:
+    """{state name: dim} of the tensors a model of `cfg` built on a rank
+    of `mesh` holds 1/tp of (tp = the "model" axis's size), along that
+    dim: `param_pspecs`' "model" entries on the one-process shapes,
+    those the rank path executes (module docstring). Empty without a
+    "model" axis of size > 1."""
+    return dict(_split_dims(cfg, tuple(_axes(mesh).items())))
+
+
+def split_of(cfg: ArchConfig, mesh, prefix: str) -> dict[str, int]:
+    """split_dims of the tensors under `prefix` (e.g. "blocks.0.ffn."),
+    named relative to it: what one layer's module splits."""
+    if mesh is None:
+        return {}
+    return {n[len(prefix):]: d for n, d in split_dims(cfg, mesh).items()
+            if n.startswith(prefix)}
+
+
 def rank_split(params) -> dict[str, int]:
     """{state name: dim} of the parameters that a rank model (built with
-    `mesh=`) holds a slice of: each MoE expert bank, split over "model" on
-    its expert axis (dim 0 of the per-layer tensor). Every other
-    parameter is replicated."""
-    out = {}
-    for prefix, module in params.named_modules():
-        split = getattr(module, "rank_split", None)
-        if split:
-            for name, dim in split.items():
-                out[f"{prefix}.{name}" if prefix else name] = dim
-    return out
+    `mesh=`) holds its slice of: the model's `placement`, which is
+    split_dims of its config and mesh. Every other parameter is
+    replicated. Empty for a one-process model."""
+    return dict(getattr(params, "placement", None) or {})
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """A rank's part of a tensor of `shape` placed by `spec` (a spec of
+    this module: cache_pspecs' for a decode cache, logits_pspec's for
+    the logits): each dim divided by the product of its axes' sizes."""
+    axes = _axes(mesh)
+    out = []
+    for dim, entry in zip(shape, _padded(spec, len(shape))):
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        n = math.prod(axes[a] for a in names)
+        if dim % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"over {names}")
+        out.append(dim // n)
+    return tuple(out)
 
 
 def local_batch(batch, mesh):
@@ -274,5 +376,6 @@ def local_batch(batch, mesh):
     return out
 
 
-__all__ = ["batch_pspecs", "cache_pspecs", "local_batch", "logits_pspec",
-           "param_pspecs", "rank_split", "reference_shapes"]
+__all__ = ["batch_pspecs", "cache_pspecs", "is_tensor_parallel",
+           "local_batch", "local_shape", "logits_pspec", "param_pspecs",
+           "rank_split", "reference_shapes", "split_dims", "split_of"]

@@ -26,14 +26,20 @@ with gradients for training or in the config's dtype for serving;
 `params_from_reference(tree, device=...)` carries the JAX package's
 parameter pytree (numpy arrays; models/naming.py maps the names) across,
 so that both packages compute from the same weights. `build(cfg,
-mesh=)` is the reference's `build(cfg, mesh=, dp_axes=)`: on a rank of a
-launch/mesh.RankMesh with axes ("data", "model") the model holds the
-rank's E/ep experts and its MoE dispatch runs over the ranks
-(models/moe.py); the entry points take the rank's data row of the
-batch (launch/sharding.local_batch), and `params_from_reference(...,
-mesh=)` keeps the rank's slice. `build(cfg, ep_size=, dp=)` runs the
-dp x ep_size mesh shards as a batch axis in one process instead (the
-rank path's oracle).
+mesh=)` is the reference's `build(cfg, mesh=, dp_axes=)`: on a rank of
+a launch/mesh.RankMesh with axes ("data", "model") the model holds the
+rank's slice of each tensor that launch/sharding.split_dims names: for
+the transformer family's `attn_sharding="heads"` configs, tensor
+parallelism over "model" (models/transformer.py), and the MoE blocks'
+E/ep experts with their dispatch over the ranks (models/moe.py); other
+configs are replicated on a rank. The entry points take the rank's data
+row of the batch (launch/sharding.local_batch); on a TP rank, `forward`,
+`prefill` and `decode_step` return the rank's vocab slice of the logits
+(launch/sharding.logits_pspec), `loss` is the vocab-parallel
+cross-entropy and `init_cache` holds the rank's KV heads.
+`params_from_reference(..., mesh=)` keeps the rank's slice.
+`build(cfg, ep_size=, dp=)` runs the dp x ep_size mesh shards as a
+batch axis in one process instead (the rank path's oracle).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import pmax, psum
 from repro_torch.kernels import u32
 from repro_torch.launch.sharding import rank_split
 from repro_torch.models import hymba, naming, transformer, whisper, xlstm
@@ -109,17 +116,35 @@ class ModelApi:
         return specs
 
 
-def ce_loss(logits, labels):
+def ce_loss(logits, labels, *, mesh=None):
     """Mean next-token cross-entropy: the twin of the reference's
     `_ce_loss`, which scores logits[:, :-1] against labels[:, 1:]. The
     reference's pipeline already shifts its labels by one, so the two
     together train position i on token i+2 (ROADMAP.md §3 fault 5); the
-    port keeps these semantics to stay comparable."""
+    port keeps these semantics to stay comparable.
+
+    Vocab-parallel on a TP rank of `mesh` (logits: the rank's vocab
+    slice [i * V/tp, (i + 1) * V/tp)): the shift is the max over "model"
+    (pmax, no gradient: it cancels), the sum of exps and the target's
+    logit (zero on the ranks that do not hold it) are each summed over
+    "model" (psum); every rank returns the same loss."""
     lg = logits[:, :-1].float()
     tgt = labels[:, 1:].long()
-    m = lg.amax(dim=-1, keepdim=True)
-    lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
-    tgt_logit = lg.gather(-1, tgt[..., None])[..., 0]
+    if mesh is None or mesh.size_of("model") == 1:
+        m = lg.amax(dim=-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.exp(lg - m).sum(dim=-1))
+        tgt_logit = lg.gather(-1, tgt[..., None])[..., 0]
+        return (lse - tgt_logit).mean()
+    m = pmax(lg.amax(dim=-1, keepdim=True), mesh, "model", what="ce.max")
+    sumexp = psum(torch.exp(lg - m).sum(dim=-1), mesh, "model",
+                  what="ce.psum")
+    lse = m[..., 0] + torch.log(sumexp)
+    v = lg.shape[-1]
+    local = tgt - mesh.index_of("model") * v
+    inside = (local >= 0) & (local < v)
+    mine = lg.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+    tgt_logit = psum(torch.where(inside, mine, torch.zeros_like(mine)),
+                     mesh, "model", what="ce.psum")
     return (lse - tgt_logit).mean()
 
 
@@ -154,8 +179,8 @@ def stub_inputs(cfg: ArchConfig, batch: int, seq: int,
 def new_model(cfg: ArchConfig, generator, *, trainable: bool = False,
               mesh=None):
     """The family's module; on a rank of `mesh` (transformer families:
-    the MoE banks hold the rank's experts; the others have nothing to
-    place and are the one-process module)."""
+    the rank's slices of launch/sharding.split_dims; the others have
+    nothing to place and are the one-process module)."""
     cls = model_class(cfg)
     if mesh is not None and cls is transformer.Transformer:
         return cls(cfg, generator, trainable=trainable, mesh=mesh)
@@ -198,6 +223,8 @@ def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1,
         raise NotImplementedError(
             "build: a 'pod' axis is the pod-group gradient compression's "
             "(ROADMAP.md §1 item 3), not ported yet")
+    if cls is transformer.Transformer:
+        transformer.tensor_parallel(cfg, mesh)  # raises where TP is not run
     batch_mesh = dict(ep_size=ep_size, dp=dp)
 
     def init(generator: torch.Generator, *, trainable: bool = False):
@@ -220,7 +247,8 @@ def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1,
             return params.decode_step(cache, token, pos, **batch_mesh)
 
         def new_cache(batch, max_len, dev):
-            return transformer.init_cache(cfg, batch, max_len, dev)
+            return transformer.init_cache(cfg, batch, max_len, dev,
+                                          mesh=mesh)
     elif fam == "encdec":
         def forward(params, batch):
             return params.forward(batch["tokens"], batch["frames"])
@@ -251,7 +279,8 @@ def build(cfg: ArchConfig, *, ep_size: int = 1, dp: int = 1,
             return module.init_cache(cfg, batch, max_len, dev)
 
     def loss(params, batch):
-        return ce_loss(forward(params, batch), batch["labels"])
+        return ce_loss(forward(params, batch), batch["labels"],
+                       mesh=getattr(params, "tp", None))
 
     def init_cache(batch: int, max_len: int, *, device="cuda"):
         dev = torch.device("meta") if str(device) == "meta" \

@@ -22,15 +22,22 @@ alongside the routed path. Every dispatch path carries gradients into
 the tokens, the routing weights and the expert banks.
 
 On a rank of a launch/mesh.RankMesh (`mesh=`), the block holds only its
-E/ep experts, ep = the "model" axis's size (launch/sharding's EP rule):
-it still draws every tensor in the one-process order and keeps its
-slice, so that its weights equal the one-process model's (transiently
-one whole expert bank). `forward` then takes the reference's two
-shard_map branches with the sort dispatch: over the ranks
-(`sort_dispatch_ranks`) for S > 1, the tokens of the rank's data row
-split over "model" and gathered back; replicated with a psum
-(`ep_replicated_ranks`) for S == 1. The router and everything outside
-the dispatch run replicated on every rank of the row.
+E/ep experts, ep = the "model" axis's size (launch/sharding's EP rule),
+and, for an `attn_sharding="heads"` config, 1/tp of the shared experts'
+width (TP, tp = ep: w_gate and w_up column-parallel, w_down
+row-parallel): it still draws every tensor in the one-process order and
+keeps its slice, so that its weights equal the one-process model's
+(transiently one whole expert bank). `forward` then takes the
+reference's two shard_map branches with the sort dispatch: over the
+ranks (`sort_dispatch_ranks`) for S > 1, the tokens of the rank's data
+row split over "model" and, back, each rank's rows placed in the whole;
+replicated (`ep_replicated_ranks`) for S == 1, each rank's experts'
+part. Either way the routed output of the rank is a partial sum that
+joins the shared experts' partial sum before one psum over "model"
+(shared experts that are not split are added after it). The router
+runs replicated on every rank of the row, on the same bytes, so routing
+is what the one-process block's is; the block's input and output are
+replicated over "model".
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import moe_dispatch as md
-from repro_torch.core.collectives import gather_rows, split_rows
+from repro_torch.core.collectives import psum, split_rows
+from repro_torch.launch.sharding import split_of
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig
 
@@ -86,36 +94,41 @@ class MoeFFN(nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         d, e, fe = cfg.d_model, cfg.n_experts_padded, cfg.d_ff_expert
-        lo, hi = expert_range(cfg, mesh)
-        #: {parameter: dim} of this block's tensors split over the ranks
-        self.rank_split = ({} if hi - lo == e else
-                           {n: 0 for n in ("w_gate", "w_up", "w_down")})
+        expert_range(cfg, mesh)  # the bank splits evenly, or raise
+        #: {state name: dim} of this block's tensors split over the ranks
+        #: (launch/sharding.split_of)
+        self.placement = split_of(cfg, mesh, "blocks.0.ffn.")
+        #: the rank's mesh when the shared experts are tensor-parallel
+        self.tp = mesh if "shared.w_down" in self.placement else None
 
-        def uni(shape, scale=None, bank=False):
+        def uni(name, shape, scale=None):
             t = layers.uniform_init(shape, generator, scale, dtype=dtype)
-            if bank and self.rank_split:
-                t = t[lo:hi].clone()  # the full bank's draw, then the slice
+            # the whole tensor's draw, then the rank's slice
+            t = layers.placed({name: t}, self.placement, "", mesh)[name]
             return nn.Parameter(t, requires_grad=requires_grad)
 
-        self.router = uni((d, e))
-        self.w_gate = uni((e, d, fe), d**-0.5, bank=True)
-        self.w_up = uni((e, d, fe), d**-0.5, bank=True)
-        self.w_down = uni((e, fe, d), fe**-0.5, bank=True)
+        self.router = uni("router", (d, e))
+        self.w_gate = uni("w_gate", (e, d, fe), d**-0.5)
+        self.w_up = uni("w_up", (e, d, fe), d**-0.5)
+        self.w_down = uni("w_down", (e, fe, d), fe**-0.5)
         self.shared = (nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=requires_grad) for k, v in
-             layers.swiglu_init(d, cfg.shared_d_ff, generator,
-                                dtype).items()})
+             layers.placed(layers.swiglu_init(d, cfg.shared_d_ff, generator,
+                                              dtype), self.placement,
+                           "shared.", mesh).items()})
             if cfg.shared_d_ff else None)
 
     def experts(self):
         return {"w_gate": self.w_gate, "w_up": self.w_up,
                 "w_down": self.w_down}
 
-    def forward(self, x, *, ep_size: int = 1, dp: int = 1):
+    def forward(self, x, *, ep_size: int = 1, dp: int = 1,
+                routing: dict | None = None):
         """x (B, S, d) -> (B, S, d). ep_size, dp: the mesh as a batch axis
         (the reference's `mesh` with dp data shards x ep_size EP shards;
         both 1 for no mesh). On a rank (the block's `mesh`), x is the
-        rank's data row and both stay 1."""
+        rank's data row and both stay 1. `routing`: a dict that the sort
+        dispatch fills with its routing record (core/moe_dispatch)."""
         cfg = self.cfg
         dt = x.dtype
         b, s, d = x.shape
@@ -127,13 +140,13 @@ class MoeFFN(nn.Module):
         dcfg = md.MoeDispatchConfig(
             num_experts=cfg.n_experts_padded, top_k=cfg.top_k,
             capacity_factor=cfg.moe_capacity_factor)
-        if self.mesh is not None and (mesh or (impl != "sort"
-                                               and self.rank_split)):
+        banks = "w_gate" in self.placement
+        if self.mesh is not None and (mesh or (impl != "sort" and banks)):
             raise ValueError(f"{cfg.name}: a rank's MoE block runs the sort "
                              "dispatch over its mesh (dispatch_impl="
                              f"{impl!r}, ep_size={ep_size}, dp={dp})")
         if self.mesh is not None and impl == "sort":
-            routed = self._ranks(tokens, weights, ids, dcfg, s)
+            routed = self._ranks(tokens, weights, ids, dcfg, s, routing)
         elif impl == "sort" and mesh and s == 1:
             # decode: tokens (B) << mesh size, replicated over the EP shards
             routed = md.ep_replicated(tokens, weights, ids, self.experts(),
@@ -142,7 +155,7 @@ class MoeFFN(nn.Module):
         elif impl == "sort" and mesh:
             routed = md.sort_dispatch(tokens, weights, ids, self.experts(),
                                       cfg=dcfg, expert_fn=expert_fn,
-                                      ep_size=ep_size, dp=dp)
+                                      ep_size=ep_size, dp=dp, routing=routing)
         elif impl == "onehot":
             cap = md._round_up(
                 tokens.shape[0] * cfg.top_k / cfg.n_experts
@@ -153,21 +166,34 @@ class MoeFFN(nn.Module):
                 expert_fn=lambda xin: expert_fn(self.experts(), xin))
         else:  # dense, or sort without a mesh: the single-shard pipeline
             routed = md.sort_dispatch(tokens, weights, ids, self.experts(),
-                                      cfg=dcfg, expert_fn=expert_fn)
+                                      cfg=dcfg, expert_fn=expert_fn,
+                                      routing=routing)
         out = routed.reshape(b, s, d).to(dt)
-        if self.shared is not None:
+        shared = self.shared is not None
+        if self.tp is not None:  # TP shared experts: a partial sum too
+            out = out + layers.swiglu(self.shared, x, mesh=self.tp,
+                                      reduce=False)
+            shared = False
+        if self.mesh is not None and impl == "sort":
+            # the rank's partial sums, summed over "model" in one psum
+            out = psum(out, self.mesh, "model", what="moe.psum")
+        if shared:
             out = out + layers.swiglu(self.shared, x)
         return out
 
-    def _ranks(self, tokens, weights, ids, dcfg, s):
+    def _ranks(self, tokens, weights, ids, dcfg, s, routing):
         """The dispatch over the block's mesh: the rank's row of tokens
-        (T, d), replicated over "model", in and out."""
+        (T, d), replicated over "model", in; out, the rank's part of the
+        routed output (T, d), which forward sums over "model": its rows
+        in place and zeros elsewhere (S > 1), its experts' part
+        (decode)."""
         mesh = self.mesh
         if s == 1:
             # decode: tokens (B) << mesh size, replicated over the EP ranks
             return md.ep_replicated_ranks(tokens, weights, ids,
                                           self.experts(), cfg=dcfg,
-                                          expert_fn=expert_fn, mesh=mesh)
+                                          expert_fn=expert_fn, mesh=mesh,
+                                          reduce=False)
         ep, j = mesh.size_of("model"), mesh.index_of("model")
         t = tokens.shape[0] // ep
         if t * ep != tokens.shape[0]:
@@ -176,5 +202,7 @@ class MoeFFN(nn.Module):
         mine = md.sort_dispatch_ranks(
             split_rows(tokens, mesh, "model"),
             split_rows(weights, mesh, "model"), ids[j * t:(j + 1) * t],
-            self.experts(), cfg=dcfg, expert_fn=expert_fn, mesh=mesh)
-        return gather_rows(mine, mesh, "model")
+            self.experts(), cfg=dcfg, expert_fn=expert_fn, mesh=mesh,
+            routing=routing)
+        # backward: this rank's rows of the gradient, unsummed
+        return F.pad(mine, (0, 0, j * t, (ep - 1 - j) * t))

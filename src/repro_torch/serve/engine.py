@@ -5,6 +5,13 @@ temperature sampling (from an explicit `torch.Generator`), per-sequence
 stop handling via an alive mask. The cache reserves the prompt, every
 new token and one more position, as the reference does. Used by
 repro_torch.examples.serve_decode and chip_smoke's serve phases.
+
+On a tensor-parallel rank (the model built with `mesh=`; its logits are
+the rank's vocab slice) greedy decoding picks with
+core/collectives.sharded_argmax, which equals torch.argmax over the
+whole vocab, ties included; temperature > 0 gathers the whole logits
+over "model" and every rank draws from the same seeded generator, so
+every rank holds the same tokens.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import time
 
 import torch
 
+from repro_torch.core.collectives import all_gather_seq, sharded_argmax
 from repro_torch.models.api import ModelApi
 
 
@@ -47,12 +55,18 @@ def generate(model: ModelApi, params, batch, cfg: ServeConfig, *,
     max_len = s + prefix + cfg.max_new_tokens + 1
     if generator is None and cfg.temperature > 0:
         generator = torch.Generator(device=dev).manual_seed(0)
+    tp = getattr(params, "tp", None)  # a TP rank's mesh: vocab-split logits
 
     def sample(lg):
         lg = lg[:, -1]
         if cfg.temperature > 0:
+            if tp is not None:
+                lg = all_gather_seq(lg, tp, "model", dim=-1,
+                                    what="sample.gather")
             probs = torch.softmax(lg / cfg.temperature, dim=-1)
             return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        if tp is not None:
+            return sharded_argmax(lg, tp, "model", what="greedy.gather")
         return torch.argmax(lg, dim=-1)
 
     t0 = time.perf_counter()

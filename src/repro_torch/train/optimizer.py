@@ -14,9 +14,10 @@ keeps the step counter, the lr and the norm on the parameters' device:
 nothing waits for the card.
 
 On a rank of a launch/mesh.RankMesh, the global norm counts each
-replicated gradient once and sums the split ones' (the expert banks,
-`split`) squares over the "model" axis, so every rank clips by the norm
-of the whole model's gradient.
+replicated gradient once and sums the split ones' (each tensor the rank
+holds a slice of, `split`: launch/sharding.rank_split) squares over the
+"model" axis, so every rank clips by the norm of the whole model's
+gradient.
 """
 from __future__ import annotations
 

@@ -16,12 +16,15 @@ exchange itself is `grad_compress.compressed_pod_mean`.
 
 With `mesh=` (a launch/mesh.RankMesh with axes ("data", "model"), the
 model built on it), each rank takes its data row of the global batch
-(launch/sharding.local_batch), and after the backward pass the
-gradients and the loss are averaged over the data axes (one all_reduce
-each; the expert banks' among the ranks holding the same experts), and
-the clip's global norm sums the expert banks' squares over "model"
-(train/optimizer.global_norm). A "pod" axis is the pod-group gradient
-compression's, not ported yet.
+(launch/sharding.local_batch). After the backward pass, the gradients
+that sequence parallelism leaves partial on a TP rank (the norm
+scales': each rank's norms saw its tokens only; the model's
+`sp_partial`) are summed over "model" (one all_reduce of them all);
+then the gradients and the loss are averaged over the data axes (one
+all_reduce each; a split tensor's among the ranks holding the same
+slice), and the clip's global norm sums the split tensors' squares over
+"model" (train/optimizer.global_norm with launch/sharding.rank_split).
+A "pod" axis is the pod-group gradient compression's, not ported yet.
 """
 from __future__ import annotations
 
@@ -71,6 +74,17 @@ def _data_mean(tensors, mesh):
         return
     for t in tensors:
         t.copy_(psum(t, mesh, dp, what="grad_mean")).div_(n)
+
+
+def _model_sum(tensors, mesh):
+    """The tensors summed in place over "model", in one all_reduce of
+    their concatenation."""
+    if not tensors or mesh.size_of("model") == 1:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    flat = psum(flat, mesh, "model", what="grad_sp")
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 def make_train_step(model, tcfg: TrainConfig, mesh=None):
@@ -124,7 +138,10 @@ def make_train_step(model, tcfg: TrainConfig, mesh=None):
         loss, grads = grads_of(params, batch)
         split = ()
         if mesh is not None:
+            partial = getattr(params, "sp_partial", lambda seq: [])(
+                batch["tokens"].shape[1])
             with torch.no_grad():
+                _model_sum([grads[n] for n in partial], mesh)
                 _data_mean([loss, *grads.values()], mesh)
             split = rank_split(params)
         new_state = dict(state)

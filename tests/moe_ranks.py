@@ -131,24 +131,25 @@ def ffn(mesh, cfg, state, x, probe):
     """models/moe.MoeFFN on the rank: built on the mesh (its experts
     only), loaded with the rank's slice of `state`, run on its data row
     of x; the output and the gradients of sum(out * probe)."""
+    from repro_torch.models import layers
     from repro_torch.models.moe import MoeFFN
 
-    dp, ep = mesh.size_of("data"), mesh.size_of("model")
-    g, j = mesh.index_of("data"), mesh.index_of("model")
+    dp = mesh.size_of("data")
+    g = mesh.index_of("data")
     block = MoeFFN(cfg, None, dtype=torch.float32, requires_grad=True,
                    mesh=mesh)
-    el = cfg.n_experts_padded // ep
-    mine = {n: (a[j * el:(j + 1) * el] if n in EXPERT_KEYS else a)
-            for n, a in state.items()}
-    block.load_state_dict({n: torch.from_numpy(a) for n, a in mine.items()},
-                          strict=True, assign=True)
+    # the rank's experts, and its slice of the shared experts' width
+    mine = layers.placed({n: torch.from_numpy(a) for n, a in state.items()},
+                         block.placement, "", mesh)
+    block.load_state_dict(mine, strict=True, assign=True)
     block.requires_grad_(True)
     b = x.shape[0] // dp
     xl = torch.from_numpy(x[g * b:(g + 1) * b]).requires_grad_()
     out = block(xl)
     (out * torch.from_numpy(probe[g * b:(g + 1) * b])).sum().backward()
     return {"out": _np(out), "x": _np(xl.grad),
-            "grads": {n: _np(p.grad) for n, p in block.named_parameters()}}
+            "grads": {n: _np(p.grad) for n, p in block.named_parameters()},
+            "placement": dict(block.placement)}
 
 
 def moe_cases(rank, world, store_path, layouts, dispatch_cases, ffn_cases):
@@ -191,6 +192,7 @@ def train_steps(mesh, cfg, tree, batches, ckpt_dir):
     batch, then a checkpoint written by the ranks and read back. Returns
     the weights as loaded, each step's metrics, the weights after the
     steps and whether the reloaded state equals the saved one."""
+    from repro_torch.launch.sharding import rank_split
     from repro_torch.models import api as mapi
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optimizer import OptConfig
@@ -219,7 +221,7 @@ def train_steps(mesh, cfg, tree, batches, ckpt_dir):
         and torch.equal(state["opt"][m][n], back["opt"][m][n])
         for n, p in state["params"].named_parameters() for m in ("mu", "nu"))
     return {"loaded": loaded, "metrics": metrics, "after": after,
-            "reloaded_equal": bool(same)}
+            "reloaded_equal": bool(same), "split": rank_split(params)}
 
 
 # ---------------------------------------------------------------------------

@@ -443,21 +443,24 @@ def test_moe_block_over_ranks_matches_batch_axis_and_reference(
     dp, ep = layout
     ranks = [r["ffn"][name] for r in _moe(four, eight, layout)]
     want = _batch_ffn(name, dp, ep)
+    split = ranks[0]["placement"]  # the banks (EP), the shared width (TP)
+    assert all(split[n] == 0 for n in KEYS)
     for g in range(dp):  # replicas along "model" bit-identical
         for j in range(ep):
             a, b = ranks[g * ep + j], ranks[g * ep]
             assert np.array_equal(a["out"], b["out"])
             assert np.array_equal(a["x"], b["x"])
             for n, v in a["grads"].items():
-                if n not in KEYS:
+                if n not in split:
                     assert np.array_equal(v, b["grads"][n]), n
     got = {"out": np.concatenate([ranks[g * ep]["out"] for g in range(dp)]),
            "x": np.concatenate([ranks[g * ep]["x"] for g in range(dp)])}
     grads = {n: sum(ranks[g * ep]["grads"][n] for g in range(dp))
-             for n in want["grads"] if n not in KEYS}
+             for n in want["grads"] if n not in split}
     grads.update({n: np.concatenate([sum(ranks[g * ep + j]["grads"][n]
                                          for g in range(dp))
-                                     for j in range(ep)]) for n in KEYS})
+                                     for j in range(ep)], axis=dim)
+                  for n, dim in split.items()})
     for key in ("out", "x"):
         np.testing.assert_allclose(got[key], want[key], rtol=0,
                                    atol=TOL["batch"], err_msg=key)
@@ -499,17 +502,12 @@ def one_process_train():
     return cfg, tcfg, loaded, metrics, state
 
 
-def _is_bank(name):
-    """A routed expert bank (split over "model" on a rank)."""
-    *_, parent, key = name.split(".")
-    return parent == "ffn" and key in KEYS
-
-
-def _slice(name, arr, j, ep):
-    """Rank j's part of a one-process parameter."""
-    if _is_bank(name):
-        n = arr.shape[0] // ep
-        return arr[j * n:(j + 1) * n]
+def _slice(name, arr, j, ep, split):
+    """Rank j's part of a one-process parameter (`split`: the rank
+    model's launch/sharding.rank_split)."""
+    if name in split:
+        n = arr.shape[split[name]] // ep
+        return np.take(arr, np.arange(j * n, (j + 1) * n), axis=split[name])
     return arr
 
 
@@ -521,8 +519,8 @@ def test_params_from_reference_keeps_the_rank_slice(four,
         j = r % 2
         assert sorted(rank["loaded"]) == sorted(loaded)
         for n, a in rank["loaded"].items():
-            np.testing.assert_array_equal(a, _slice(n, loaded[n], j, 2),
-                                          err_msg=n)
+            np.testing.assert_array_equal(
+                a, _slice(n, loaded[n], j, 2, rank["split"]), err_msg=n)
         assert rank["loaded"]["blocks.0.ffn.w_gate"].shape[0] == 8  # 16 / 2
 
 
@@ -541,12 +539,12 @@ def test_train_steps_over_ranks_match_the_batch_axis_step(
            state["params"].named_parameters()}
     for r, rank in enumerate(ranks):
         for n, a in rank["after"].items():
-            want = _slice(n, one[n], r % 2, 2)
+            want = _slice(n, one[n], r % 2, 2, rank["split"])
             np.testing.assert_allclose(a, want, rtol=PARAM_RTOL,
                                        atol=PARAM_ATOL, err_msg=n)
-            if not _is_bank(n):  # replicated: every rank
+            if n not in rank["split"]:  # replicated: every rank
                 assert np.array_equal(a, ranks[0]["after"][n]), n
-            else:  # an expert bank: the same on both data rows
+            else:  # a rank's slice: the same on both data rows
                 assert np.array_equal(a, ranks[r % 2]["after"][n]), n
     assert all(rank["reloaded_equal"] for rank in ranks)
 
@@ -559,9 +557,10 @@ def test_rank_checkpoint_loads_in_one_process_and_the_reference(
     state, step = ckpt.load(target, ck, device="cpu")
     assert step == 2 and int(state["opt"]["step"]) == 2
     after = [r["train"]["after"] for r in ranks]
+    split = ranks[0]["train"]["split"]
     for n, p in state["params"].named_parameters():
-        whole = np.concatenate([after[j][n] for j in range(2)]) \
-            if _is_bank(n) else after[0][n]
+        whole = np.concatenate([after[j][n] for j in range(2)],
+                               axis=split[n]) if n in split else after[0][n]
         np.testing.assert_array_equal(p.detach().numpy(), whole, err_msg=n)
     jcfg = jget("qwen2-moe-a2.7b").reduced(dtype="float32", remat=False,
                                            dispatch_impl="sort")
