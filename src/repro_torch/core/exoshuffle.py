@@ -20,6 +20,13 @@ Blocks are padded to capacity = next_pow2(n/W * capacity_factor), and
 reference's pmax: collectives.any_across). `distributed_sort_payload`
 sorts whole records: the payload rows follow their headers by one of
 core/payload.py's modes.
+
+Each stage runs inside an obs/device span (`sort.map`, `sort.partition`,
+`sort.pack`, `sort.exchange`, `sort.merge`, the through mode's
+`payload.*`, `sort.overflow_check`, all in `exoshuffle.call`), a range
+on the trace only while a torch profiler captures; the exchange counts
+the records and the block slots it sends (`exchange.records`,
+`exchange.slots`).
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ from repro_torch.core.collectives import (all_to_all_tiled, any_across,
                                           worker_ids)
 from repro_torch.core.keyspace import KeySpace
 from repro_torch.kernels import u32
+from repro_torch.obs import device as obs_device
+from repro_torch.obs.device import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,17 +86,25 @@ def _exchange(keys, vals, *, cfg: ShuffleConfig, capacity: int, mesh=None):
     tensor of this process's blocks alone.
     """
     ks = cfg.keyspace
+    wl, n = keys.shape
     # --- map: sort the local partitions (paper §2.3 step 1) ---
-    sk, sv = sortlib.sort_records(keys, vals, impl=cfg.impl)
+    with span("sort.map"):
+        sk, sv = sortlib.sort_records(keys, vals, impl=cfg.impl)
     # --- partition at worker boundaries (paper §2.2) ---
-    wb = ks.worker_boundaries(keys.device)  # (W-1,)
-    starts, counts = sortlib.partition_sorted(sk, wb, impl=cfg.impl)
-    bk, bv, overflow = sortlib.gather_range_blocks(sk, sv, starts, counts,
-                                                   capacity)
+    with span("sort.partition"):
+        wb = ks.worker_boundaries(keys.device)  # (W-1,)
+        starts, counts = sortlib.partition_sorted(sk, wb, impl=cfg.impl)
+    with span("sort.pack"):
+        bk, bv, overflow = sortlib.gather_range_blocks(sk, sv, starts,
+                                                       counts, capacity)
     # --- shuffle: the tiled all_to_all, (W_src, W_dst, C) -> (W_dst, W_src, C)
-    rk = all_to_all_tiled(bk, mesh, what="keys")
-    rv = all_to_all_tiled(bv, mesh, what="vals")
-    rcounts = all_to_all_tiled(counts, mesh, what="counts")
+    obs_device.counters.counter("exchange.records", wl * n)
+    obs_device.counters.counter("exchange.slots",
+                                wl * cfg.num_workers * capacity)
+    with span("sort.exchange"):
+        rk = all_to_all_tiled(bk, mesh, what="keys")
+        rv = all_to_all_tiled(bv, mesh, what="vals")
+        rcounts = all_to_all_tiled(counts, mesh, what="counts")
     return bv, rk, rv, rcounts, overflow
 
 
@@ -102,7 +119,8 @@ def _shuffle_round(keys, vals, *, cfg: ShuffleConfig, capacity: int,
     _, rk, rv, rcounts, overflow = _exchange(keys, vals, cfg=cfg,
                                              capacity=capacity, mesh=mesh)
     # --- merge: the merge task (paper §2.3), a merge tournament ---
-    mk, mv = sortlib.merge_runs(rk, rv, impl=cfg.impl)
+    with span("sort.merge"):
+        mk, mv = sortlib.merge_runs(rk, rv, impl=cfg.impl)
     return mk, mv, rcounts, overflow
 
 
@@ -154,14 +172,17 @@ def distributed_sort(keys, vals, *, num_workers: int,
     w = num_workers
     wl, dev = held_workers(w, mesh, device)
     cfg = _config(w, cfg, impl, capacity_factor)
-    keys, vals = u32.as_tensor(keys, dev), u32.as_tensor(vals, dev)
-    n = keys.shape[-1] // wl
-    capacity = cfg.block_capacity(n)
-    mk, mv, rcounts, overflow = _shuffle_round(
-        keys.reshape(wl, n), vals.reshape(wl, n), cfg=cfg, capacity=capacity,
-        mesh=mesh)
-    valid = rcounts.sum(dim=-1).to(torch.int32)
-    return mk.reshape(-1), mv.reshape(-1), valid, any_across(overflow, mesh)
+    with span("exoshuffle.call"):
+        keys, vals = u32.as_tensor(keys, dev), u32.as_tensor(vals, dev)
+        n = keys.shape[-1] // wl
+        capacity = cfg.block_capacity(n)
+        mk, mv, rcounts, overflow = _shuffle_round(
+            keys.reshape(wl, n), vals.reshape(wl, n), cfg=cfg,
+            capacity=capacity, mesh=mesh)
+        valid = rcounts.sum(dim=-1).to(torch.int32)
+        with span("sort.overflow_check"):
+            overflow = any_across(overflow, mesh)
+    return mk.reshape(-1), mv.reshape(-1), valid, overflow
 
 
 PAYLOAD_MODES = ("through", "late")
@@ -185,16 +206,20 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
         # Payload rows ride the same exchange, block-aligned with their
         # headers; local row = min(id - my*n, n-1) in u32 arithmetic, so
         # pad ids take the sender's last row.
-        my = worker_ids(mesh, w, keys.device)
-        diff = (u32.widen(bv) - my[:, None, None] * n) & u32.MASK
-        local_row = torch.clamp(diff, max=n - 1).reshape(wl, -1)
-        bp = pay.take_rows(payload, local_row)
-        rp = pay.exchange_payload_blocks(
-            bp.reshape(wl, w, capacity, bp.shape[-1]), mesh)
-    mk, mv = sortlib.merge_runs(rk, rv, impl=cfg.impl)
+        with span("payload.pack"):
+            my = worker_ids(mesh, w, keys.device)
+            diff = (u32.widen(bv) - my[:, None, None] * n) & u32.MASK
+            local_row = torch.clamp(diff, max=n - 1).reshape(wl, -1)
+            bp = pay.take_rows(payload, local_row)
+        with span("payload.exchange"):
+            rp = pay.exchange_payload_blocks(
+                bp.reshape(wl, w, capacity, bp.shape[-1]), mesh)
+    with span("sort.merge"):
+        mk, mv = sortlib.merge_runs(rk, rv, impl=cfg.impl)
     if mode == "through":
-        pout = pay.align_payload_to_merge(
-            rv.reshape(wl, -1), rp.reshape(wl, -1, rp.shape[-1]), mv)
+        with span("payload.join"):
+            pout = pay.align_payload_to_merge(
+                rv.reshape(wl, -1), rp.reshape(wl, -1, rp.shape[-1]), mv)
         fetch_overflow = False
     else:
         pout, fetch_overflow = pay.late_fetch_payload(
@@ -202,7 +227,9 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
             capacity=cfg.block_capacity(mv.shape[-1]), impl=cfg.impl,
             mesh=mesh)
     valid = rcounts.sum(dim=-1).to(torch.int32)
-    return mk, mv, pout, valid, any_across(overflow | fetch_overflow, mesh)
+    with span("sort.overflow_check"):
+        overflow = any_across(overflow | fetch_overflow, mesh)
+    return mk, mv, pout, valid, overflow
 
 
 def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
@@ -230,13 +257,14 @@ def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
     w = num_workers
     wl, dev = held_workers(w, mesh, device)
     cfg = _config(w, cfg, impl, capacity_factor)
-    keys, ids = u32.as_tensor(keys, dev), u32.as_tensor(ids, dev)
-    payload = u32.as_tensor(payload, dev)
-    n = keys.shape[-1] // wl
-    pw = payload.shape[-1]
-    mk, mv, pout, valid, ovf = _sort_shard_payload(
-        keys.reshape(wl, n), ids.reshape(wl, n), payload.reshape(wl, n, pw),
-        cfg=cfg, mode=mode, mesh=mesh)
+    with span("exoshuffle.call"):
+        keys, ids = u32.as_tensor(keys, dev), u32.as_tensor(ids, dev)
+        payload = u32.as_tensor(payload, dev)
+        n = keys.shape[-1] // wl
+        pw = payload.shape[-1]
+        mk, mv, pout, valid, ovf = _sort_shard_payload(
+            keys.reshape(wl, n), ids.reshape(wl, n),
+            payload.reshape(wl, n, pw), cfg=cfg, mode=mode, mesh=mesh)
     return mk.reshape(-1), mv.reshape(-1), pout.reshape(-1, pw), valid, ovf
 
 

@@ -17,14 +17,19 @@ export paths:
       retries, governor grants, cluster round/death events.
 
   metrics.py — MetricsRegistry (counters / gauges / histograms keyed by
-      name + labels) and the human-readable renderers the examples use
+      name + labels) and the human-readable renderer the examples use
       for their end-of-run summaries.
 
   trace.py   — Chrome trace-event JSON export (perfetto /
       chrome://tracing loadable, workers as tracks).
 
-Everything here is stdlib-only and import-cycle-free: io/ and shuffle/
-import obs, never the reverse.
+  device.py  — the device work's spans (`span(name)`: a torch profiler
+      range, live only while a profiler captures) and its always-on
+      counters (a MetricsRegistry). It imports torch, so this package
+      does not import it: `from repro_torch.obs import device`.
+
+Everything this package imports is stdlib-only and import-cycle-free:
+io/ and shuffle/ import obs, never the reverse.
 """
 from repro_torch.obs.context import (TraceContext, bind_context, current_context,
                                use_context)

@@ -1,0 +1,73 @@
+"""Spans and counters inside the port's device work.
+
+  span(name)  a `torch.profiler.record_function` range named `name`, opened
+              only while a torch profiler is capturing; otherwise the one
+              check of the profiler's own flag and nothing more. There is
+              no switch of its own: tracing is on exactly when a profiler
+              is. Kineto records these ranges on the clock of the CUDA
+              activity it traces, so a device operation can be put down
+              to the span that was open when the host launched it.
+  counters    a MetricsRegistry held by this module, always on. The port
+              counts into it host integers taken from shapes, never from
+              device values (no `.item()`, no synchronise).
+
+The spans of the in-memory sort, all opened in core/exoshuffle.py:
+
+  exoshuffle.call      distributed_sort, distributed_sort_payload: the
+                       whole call; every span below nests in it
+  sort.map             _exchange: bitonic sort of each worker's records
+  sort.partition       _exchange: worker boundaries, the partition kernel
+  sort.pack            _exchange: header block gathers, pads, overflow flag
+  sort.exchange        _exchange: the key, id and count exchanges (a
+                       transpose copy without a mesh)
+  payload.pack         _sort_shard_payload (through mode): row index
+                       arithmetic and the send-side row gather
+  payload.exchange     _sort_shard_payload (through mode): the rows'
+                       exchange
+  sort.merge           _shuffle_round, _sort_shard_payload: the merge
+                       tournament
+  payload.join         _sort_shard_payload (through mode): the id join
+  sort.overflow_check  around each any_across: the `.any()` and the
+                       host's wait on it
+
+No name is a prefix of another. The counters, both counted in
+`_exchange` at each exchange: `exchange.records`, the records the held
+workers send (wl·n), and `exchange.slots`, the block slots they send
+(wl·W·C); the first over the second is the share of slots that carry a
+record, the rest pads.
+
+To take a trace of a sort:
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exoshuffle.distributed_sort_payload(keys, ids, payload,
+                                            num_workers=8)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace("sort_trace.json")  # perfetto, chrome://tracing
+
+This module imports torch; `repro_torch.obs` does not import it.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.obs.metrics import MetricsRegistry
+
+counters = MetricsRegistry()
+
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager: a profiler range named `name` while a torch
+    profiler captures, else a shared no-op."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+__all__ = ["counters", "span"]

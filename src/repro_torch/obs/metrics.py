@@ -1,4 +1,4 @@
-"""MetricsRegistry: labeled counters / gauges / histograms + renderers.
+"""MetricsRegistry: labeled counters / gauges / histograms + a renderer.
 
 The aggregated side of the observability layer: where the EventLog keeps
 individual occurrences, the registry keeps totals — request attempts vs
@@ -7,8 +7,8 @@ governor-grant histograms, re-executed task counts. One lock, plain-dict
 snapshots, no dependencies — the report embeds `snapshot()` verbatim and
 the benchmark artifacts are built from it.
 
-`render()` / `render_report()` are the human-readable formatters the
-examples print instead of hand-rolled f-strings.
+`render_report()` is the human-readable formatter the examples print
+instead of hand-rolled f-strings.
 """
 from __future__ import annotations
 
@@ -98,22 +98,6 @@ class MetricsRegistry:
         return {"counters": dict(sorted(counters.items())),
                 "gauges": dict(sorted(gauges.items())),
                 "histograms": dict(sorted(hists.items()))}
-
-    def render(self, prefix: str = "") -> list[str]:
-        """Human-readable lines, optionally filtered by name prefix."""
-        snap = self.snapshot()
-        lines = []
-        for section in ("counters", "gauges"):
-            for name, v in snap[section].items():
-                if name.startswith(prefix):
-                    val = f"{v:g}" if isinstance(v, float) else str(v)
-                    lines.append(f"{section[:-1]:<9s} {name:<56s} {val}")
-        for name, h in snap["histograms"].items():
-            if name.startswith(prefix):
-                lines.append(
-                    f"histogram {name:<56s} n={h['count']} "
-                    f"mean={h['mean']:g} min={h['min']:g} max={h['max']:g}")
-        return lines
 
 
 def render_report(report) -> list[str]:

@@ -32,7 +32,6 @@ writes handed to staging pools — are attributed to it.
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import itertools
 import threading
@@ -112,14 +111,6 @@ class PhaseTimeline:
             # Outside the lock: the sink (obs Tracer) has its own, and
             # it receives ABSOLUTE times — its clock origin may differ.
             self._sink(phase, start, end, worker)
-
-    @contextlib.contextmanager
-    def span(self, phase: str, worker: str = ""):
-        t = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(phase, t, worker=worker)
 
     def totals(self) -> dict[str, float]:
         with self._lock:

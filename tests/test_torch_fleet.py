@@ -192,18 +192,23 @@ def _renamed_reference_and_port(rel):
 
 
 def test_copied_modules_are_the_reference_renamed():
-    for rel in ("shuffle/elastic.py", "shuffle/runtime.py",
-                "shuffle/executor.py"):
+    for rel in ("shuffle/elastic.py", "shuffle/executor.py"):
         want, got = _renamed_reference_and_port(rel)
         assert got == want, rel
     # shuffle/job.py is the renamed reference plus the port's rank path
-    # (a job on a launch/mesh.RankMesh) and nothing else: its diff
-    # against the renamed reference is pinned, line for line.
-    want, got = _renamed_reference_and_port("shuffle/job.py")
-    diff = difflib.unified_diff(want.splitlines(True), got.splitlines(True),
-                                "reference", "port", n=0)
-    with open(os.path.join(REPO, "tests", "shuffle_job_rank_path.diff")) as f:
-        assert "".join(diff) == f.read()
+    # (a job on a launch/mesh.RankMesh), and shuffle/runtime.py the
+    # renamed reference less PhaseTimeline.span (which nothing in the
+    # port calls), and nothing else: their diffs against the renamed
+    # reference are pinned, line for line.
+    for rel, pinned in (("shuffle/job.py", "shuffle_job_rank_path.diff"),
+                        ("shuffle/runtime.py",
+                         "shuffle_runtime_no_span.diff")):
+        want, got = _renamed_reference_and_port(rel)
+        diff = difflib.unified_diff(want.splitlines(True),
+                                    got.splitlines(True), "reference",
+                                    "port", n=0)
+        with open(os.path.join(REPO, "tests", pinned)) as f:
+            assert "".join(diff) == f.read(), rel
 
 
 # ---------------------------------------------------------------------------
