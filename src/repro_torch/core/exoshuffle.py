@@ -19,7 +19,9 @@ Blocks are padded to capacity = next_pow2(n/W * capacity_factor), and
 `overflow` reports whether any block on any rank exceeded it (the
 reference's pmax: collectives.any_across). `distributed_sort_payload`
 sorts whole records: the payload rows follow their headers by one of
-core/payload.py's modes.
+core/payload.py's modes; in the through mode the merge carries each
+received record's arrival slot in place of its id, and the ids and rows
+are gathered by slot after it.
 
 Each stage runs inside an obs/device span (`sort.map`, `sort.partition`,
 `sort.pack`, `sort.exchange`, `sort.merge`, the through mode's
@@ -194,7 +196,13 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
     payload rows by `mode` ("through" = paper-faithful, "late" =
     deferred fetch). keys/ids (Wl, n) u32, payload (Wl, n, pw) u32.
     Returns (mk, mv, pout, valid, overflow): mk/mv (Wl, W*C), pout
-    (Wl, W*C, pw), valid (Wl,) int32, overflow a bool (every rank's)."""
+    (Wl, W*C, pw), valid (Wl,) int32, overflow a bool (every rank's).
+
+    In through mode the merge sorts (key, arrival slot) pairs, which
+    under the ids' layout (id // n == producing worker) order as the
+    (key, id) pairs do; the ids and payload rows are gathered by slot
+    after it (core/payload.join_by_slot). The late mode merges
+    (key, id)."""
     from repro_torch.core import payload as pay
 
     wl, n = keys.shape
@@ -214,14 +222,18 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
         with span("payload.exchange"):
             rp = pay.exchange_payload_blocks(
                 bp.reshape(wl, w, capacity, bp.shape[-1]), mesh)
-    with span("sort.merge"):
-        mk, mv = sortlib.merge_runs(rk, rv, impl=cfg.impl)
-    if mode == "through":
         with span("payload.join"):
-            pout = pay.align_payload_to_merge(
-                rv.reshape(wl, -1), rp.reshape(wl, -1, rp.shape[-1]), mv)
+            slots = pay.arrival_slots(rcounts, capacity)
+        with span("sort.merge"):
+            mk, ms = sortlib.merge_runs(rk, slots, impl=cfg.impl)
+        with span("payload.join"):
+            mv, pout = pay.join_by_slot(
+                rv.reshape(wl, -1), rp.reshape(wl, -1, rp.shape[-1]), ms,
+                rcounts)
         fetch_overflow = False
     else:
+        with span("sort.merge"):
+            mk, mv = sortlib.merge_runs(rk, rv, impl=cfg.impl)
         pout, fetch_overflow = pay.late_fetch_payload(
             mv, payload, num_workers=w, records_per_worker=n,
             capacity=cfg.block_capacity(mv.shape[-1]), impl=cfg.impl,

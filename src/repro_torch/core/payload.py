@@ -5,8 +5,10 @@ the shuffle kernels sort (key: u32, id: u32) headers, and this module
 decides how the wide payload rows follow their header:
 
   - "through" (paper-faithful): the payload rows ride the shuffle's
-    exchange beside their headers, and after the merge an id join puts
-    them in output order;
+    exchange beside their headers, and a slot join puts them in output
+    order: the merge carries each received record's arrival slot (block
+    p, position j: p*C + j) in place of its id, and the ids and rows are
+    then gathered by slot (`arrival_slots`, `join_by_slot`);
 
   - "late": the shuffle moves only the headers; after the final merge
     each worker fetches the payload rows of its output records from
@@ -21,7 +23,11 @@ runs on int64 carriers (kernels/u32.py), so the pad id 0xFFFFFFFF and
 ids >= 2^31 keep their unsigned order and wrap as the reference's do.
 
 Global record ids: id // records_per_worker is the producing worker (the
-data/gensort.py layout).
+data/gensort.py layout). The slot join relies on it: each source block
+is a slice of its producer's (key, id)-sorted run, and every id of
+producer p lies below every id of producer q > p, so among equal keys
+the slot order is the id order and merging (key, slot) gives the same
+order as merging (key, id), record for record.
 """
 from __future__ import annotations
 
@@ -52,11 +58,62 @@ def align_payload_to_merge(recv_ids, recv_payload, merged_ids):
     An id join, as in the reference: a stable sort of the arrival ids,
     then a left binary search of each merged id. Pad ids (0xFFFFFFFF)
     all join the first pad row in arrival order.
+
+    The through mode no longer calls it: its merge carries arrival slots
+    and `join_by_slot` gathers by them, which gives the same rows
+    without the sort and the search, because under the id layout above
+    the (key, slot) and (key, id) orders agree. It stays as the port's
+    counterpart of the reference's join and the oracle the slot join is
+    tested against.
     """
     m = recv_ids.shape[-1]
     sids, perm = torch.sort(u32.widen(recv_ids), dim=-1, stable=True)
     pos = torch.searchsorted(sids, u32.widen(merged_ids)).clamp_(0, m - 1)
     return take_rows(recv_payload, torch.gather(perm, -1, pos))
+
+
+def arrival_slots(rcounts: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The arrival slot of each received block position.
+
+    rcounts: (Wl_dst, W_src) int32 records received from each source.
+    Returns (Wl, W_src, C) u32: p*C + j where j < min(rcounts[d, p], C),
+    0xFFFFFFFF (the pad) elsewhere. The cap keeps an overflowing block's
+    C real records, as sortlib.gather_range_blocks packs them. W_src*C
+    is at most 2^31, so a slot's int32 bits are its value (join_by_slot
+    works on them as int32) and every slot sorts below the pad.
+    """
+    w = rcounts.shape[-1]
+    if w * capacity > 1 << 31:
+        raise ValueError(f"{w} blocks of {capacity} slots: more than 2^31 "
+                         "slots a worker")
+    dev = rcounts.device
+    slots = torch.arange(w * capacity, dtype=torch.int32,
+                         device=dev).reshape(w, capacity)
+    j = torch.arange(capacity, dtype=torch.int32, device=dev)
+    return torch.where(j < rcounts[..., None], slots, u32.PAD)
+
+
+def join_by_slot(recv_ids, recv_payload, merged_slots, rcounts):
+    """The ids and payload rows of the merged records, by arrival slot.
+
+    recv_ids: (W, m) u32 ids in arrival order (m = W_src*C);
+    recv_payload: (W, m, pw) rows aligned with recv_ids; merged_slots:
+    (W, m) the merge's `arrival_slots` lanes; rcounts: (W, W_src) int32.
+    Returns (ids, rows): (W, m) and (W, m, pw) in merged order. A pad
+    slot takes the first pad of arrival order (block p's slot
+    p*C + rcounts[p] for the first p with rcounts[p] < C), as
+    `align_payload_to_merge` joins every pad id: its id is the pad id,
+    its row that pad's row. Worked out on the device, with no sync.
+    """
+    m = recv_ids.shape[-1]
+    cap = m // rcounts.shape[-1]
+    rc = rcounts.to(torch.int64)
+    block = torch.arange(rc.shape[-1], dtype=torch.int64,
+                         device=rc.device) * cap
+    first_pad = torch.where(rc < cap, block + rc, m - 1).amin(-1, True)
+    slot = torch.where(merged_slots == u32.PAD, first_pad.to(torch.int32),
+                       merged_slots).to(torch.int64)
+    return torch.gather(recv_ids, -1, slot), take_rows(recv_payload, slot)
 
 
 def exchange_payload_blocks(block_payload: torch.Tensor,

@@ -26,7 +26,10 @@ The spans of the in-memory sort, all opened in core/exoshuffle.py:
                        exchange
   sort.merge           _shuffle_round, _sort_shard_payload: the merge
                        tournament
-  payload.join         _sort_shard_payload (through mode): the id join
+  payload.join         _sort_shard_payload (through mode): the slot join,
+                       opened twice a call: the arrival slots built
+                       before the merge, then the id and row gathers by
+                       slot after it
   sort.overflow_check  around each any_across: the `.any()` and the
                        host's wait on it
 

@@ -34,8 +34,8 @@ HEADER_SPANS = ["exoshuffle.call", "sort.map", "sort.partition",
                 "sort.overflow_check"]
 PAYLOAD_SPANS = ["exoshuffle.call", "sort.map", "sort.partition",
                  "sort.pack", "sort.exchange", "payload.pack",
-                 "payload.exchange", "sort.merge", "payload.join",
-                 "sort.overflow_check"]
+                 "payload.exchange", "payload.join", "sort.merge",
+                 "payload.join", "sort.overflow_check"]
 ALL_SPANS = set(PAYLOAD_SPANS)
 
 # entry ("headers": distributed_sort; else distributed_sort_payload in
