@@ -31,10 +31,14 @@ Run from the repo root on a machine with one H100. It
   6. the whole-record payload modes (core/exoshuffle.
      distributed_sort_payload, W = 8, 23 payload words): `payload.identity`
      holds both modes on the card against the CPU's plain versions at
-     2^20 records; `payload.split` splits one call of each mode at 2^24
-     records by kernel (torch.profiler), beside the map sort's device ms
-     on the phase's own rows; `payload.full` runs 5 calls of each at
-     2^24 records (1.68 GB, one round, blocks of 2^19): the median and
+     2^20 records, and `payload.key10.identity` the whole 10-byte key
+     (key_bytes=10) the same way, with its kernels held and the
+     key-tail stage run alone under the sync debug mode
+     (`payload.key10.nosync`); `payload.split` splits one call of each
+     mode at 2^24 records by kernel (torch.profiler), beside the map
+     sort's device ms on the phase's own rows; `payload.full` runs 5
+     calls of each at 2^24 records (1.68 GB, one round, blocks of
+     2^19): the median and
      range of their seconds, peak device memory and valsort of the last
      output; then the e2e example's twin at its defaults;
   7. `fleet`: the out-of-core sort of 2^24 records in 4 waves with the
@@ -1078,6 +1082,98 @@ def phase_payload_identity():
              payload_words=PAYLOAD_WORDS, rows=int(card[2].shape[0]),
              overflow=bool(card[4]), card_s=secs[DEVICE], cpu_s=secs["cpu"],
              identical=True, pad_rows_identical=whole)
+
+
+def phase_payload_key10_identity(wrappers):
+    """`payload.key10.identity`: the whole 10-byte key
+    (distributed_sort_payload(..., key_bytes=10), core/keytail.py) on the
+    card against the CPU's plain path at IDENTITY_RECORDS, both payload
+    modes: keys, ids, valid counts and the overflow flag bit-identical,
+    payload rows whole in the through mode (pad rows included), each
+    valid prefix in the late mode. One record in 1,024 repeats its
+    neighbour's key word and one in 2,048 its whole 10-byte key, so
+    about 2,300 records lie in runs of equal key words (about 1,150
+    pairs; the stage holds 4,096 at this size) and the id breaks some
+    ties.
+    The phase names the kernels the wide path launches and holds each
+    bit-identical to its plain version at every shape it launched at;
+    the key-tail stage launches none of its own. Then the stage alone on
+    the card under torch.cuda.set_sync_debug_mode("error"): it makes the
+    host wait for nothing (`payload.key10.nosync`)."""
+    from repro_torch.core import keytail
+    from repro_torch.core.exoshuffle import distributed_sort_payload
+    from repro_torch.data import gensort
+    from repro_torch.kernels import u32
+
+    n, w = IDENTITY_RECORDS, NUM_WORKERS
+    keys, ids = gensort.gen_keys(0, n, "cpu")
+    payload = gensort.gen_payload(ids, PAYLOAD_WORDS)
+    keys, ids, payload = (u32.to_numpy(t) for t in (keys, ids, payload))
+    keys[1::1024] = keys[0::1024]
+    payload[1::2048, :keytail.TAIL_WORDS] = \
+        payload[0::2048, :keytail.TAIL_WORDS]
+    zero_launches(wrappers)
+    for mode in ("through", "late"):
+        outs = {}
+        for device in (DEVICE, "cpu"):
+            sk, si, sp, vc, ovf = distributed_sort_payload(
+                keys, ids, payload, num_workers=w, mode=mode,
+                device=device, key_bytes=10)
+            outs[device] = (u32.to_numpy(sk), u32.to_numpy(si),
+                            u32.to_numpy(sp), vc.cpu().numpy(), ovf)
+        card, cpu = outs[DEVICE], outs["cpu"]
+        for i, what in enumerate(("keys", "ids")):
+            if not np.array_equal(card[i], cpu[i]):
+                raise AssertionError(f"payload.key10.identity {mode}: {what} "
+                                     "differ between card and CPU")
+        if not np.array_equal(card[3], cpu[3]) or card[4] != cpu[4]:
+            raise AssertionError(f"payload.key10.identity {mode}: valid "
+                                 "counts or overflow differ")
+        if card[4] or int(card[3].sum()) != n:
+            raise AssertionError(f"payload.key10.identity {mode}: overflow")
+        seg = card[2].shape[0] // w
+        for d in range(w):
+            lo, hi = d * seg, d * seg + int(card[3][d])
+            if not np.array_equal(card[2][lo:hi], cpu[2][lo:hi]):
+                raise AssertionError(f"payload.key10.identity {mode}: worker "
+                                     f"{d}'s payload rows differ")
+        whole = bool(np.array_equal(card[2], cpu[2]))
+        if mode == "through" and not whole:
+            raise AssertionError("payload.key10.identity through: pad rows "
+                                 "differ")
+        tied = 0
+        for d in range(w):
+            seg_keys = card[0][d * seg:d * seg + int(card[3][d])]
+            _, counts = np.unique(seg_keys, return_counts=True)
+            tied += int(counts[counts > 1].sum())
+        emit(phase="payload.key10.identity", mode=mode, records=n, workers=w,
+             key_bytes=10, tied_records=tied, rows=int(card[2].shape[0]),
+             overflow=bool(card[4]), identical=True,
+             pad_rows_identical=whole)
+    launches = read_launches(wrappers)
+    emit(phase="payload.key10.kernels", launches=launches,
+         launched=sorted(k for k, c in launches.items() if c),
+         new_kernels=[])
+    require_launched("payload.key10.identity", launches,
+                     ("bitonic_sort_blocks", "partition_offsets_blocks",
+                      "merge_sorted_pairs"))
+    hold_shapes("payload.key10", wrappers)
+    # the stage alone: no host wait inside it
+    dev = torch.device(DEVICE)
+    sk, si, sp, vc, _ = distributed_sort_payload(
+        keys, ids, payload, num_workers=w, device=DEVICE)
+    mk, mv = sk.reshape(w, -1), si.reshape(w, -1).clone()
+    rows = sp.reshape(w, mk.shape[-1], -1).clone()
+    cap = keytail.pair_capacity(n // w, w, w, mk.shape[-1], 1.5)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tied, over = keytail.order_key_tails(mk, mv, rows, vc, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    emit(phase="payload.key10.nosync", capacity=cap, tied=int(tied),
+         overflow=bool(over), synchronised=False)
+    return launches
 
 
 def phase_payload_full(wrappers, log):
@@ -3739,6 +3835,8 @@ def run(log):
 
     # ---- 6. the payload modes ----
     timed("payload.identity", phase_payload_identity)
+    by_phase["payload.key10"] = timed("payload.key10.identity",
+                                      phase_payload_key10_identity, wrappers)
     by_phase["payload"] = timed("payload", phase_payload_full, wrappers, log)
 
     # ---- 7.-9. the fleets: processes, the skew pass, functions ----

@@ -21,14 +21,18 @@ reference's pmax: collectives.any_across). `distributed_sort_payload`
 sorts whole records: the payload rows follow their headers by one of
 core/payload.py's modes; in the through mode the merge carries each
 received record's arrival slot in place of its id, and the ids and rows
-are gathered by slot after it.
+are gathered by slot after it. With `key_bytes=10` the records carry
+the Sort Benchmark's whole 10-byte key, bytes 4-9 in their first two
+payload words, and core/keytail.py orders the runs of equal leading
+words by those bytes after the merge.
 
 Each stage runs inside an obs/device span (`sort.map`, `sort.partition`,
 `sort.pack`, `sort.exchange`, `sort.merge`, the through mode's
-`payload.*`, `sort.overflow_check`, all in `exoshuffle.call`), a range
-on the trace only while a torch profiler captures; the exchange counts
-the records and the block slots it sends (`exchange.records`,
-`exchange.slots`).
+`payload.*`, `sort.key_tail`, `sort.overflow_check`, all in
+`exoshuffle.call`), a range on the trace only while a torch profiler
+captures; the exchange counts the records and the block slots it sends
+(`exchange.records`, `exchange.slots`), the key-tail stage the records
+it finds in runs (`key_tail.records`, in obs/device.device_counts).
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import math
 
 import torch
 
-from repro_torch.core import sortlib
+from repro_torch.core import keytail, sortlib
 from repro_torch.core.collectives import (all_to_all_tiled, any_across,
                                           worker_ids)
 from repro_torch.core.keyspace import KeySpace
@@ -191,7 +195,7 @@ PAYLOAD_MODES = ("through", "late")
 
 
 def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
-                        mode: str, mesh=None):
+                        mode: str, key_bytes: int, mesh=None):
     """Whole-record sort for the held workers: headers through the merge,
     payload rows by `mode` ("through" = paper-faithful, "late" =
     deferred fetch). keys/ids (Wl, n) u32, payload (Wl, n, pw) u32.
@@ -202,7 +206,8 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
     under the ids' layout (id // n == producing worker) order as the
     (key, id) pairs do; the ids and payload rows are gathered by slot
     after it (core/payload.join_by_slot). The late mode merges
-    (key, id)."""
+    (key, id). With key_bytes 10 the key-tail stage then orders the
+    runs of equal key words by key bytes 4-9 (core/keytail.py)."""
     from repro_torch.core import payload as pay
 
     wl, n = keys.shape
@@ -239,6 +244,13 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
             capacity=cfg.block_capacity(mv.shape[-1]), impl=cfg.impl,
             mesh=mesh)
     valid = rcounts.sum(dim=-1).to(torch.int32)
+    if key_bytes == 10:
+        with span("sort.key_tail"):
+            tied, tail_overflow = keytail.order_key_tails(
+                mk, mv, pout, valid, keytail.pair_capacity(
+                    n, w, wl, mk.shape[-1], cfg.capacity_factor))
+        obs_device.device_counts.add("key_tail.records", tied)
+        overflow = overflow | tail_overflow
     with span("sort.overflow_check"):
         overflow = any_across(overflow | fetch_overflow, mesh)
     return mk, mv, pout, valid, overflow
@@ -249,7 +261,7 @@ def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
                              cfg: ShuffleConfig | None = None,
                              impl: str = "kernel",
                              capacity_factor: float = 1.5, device="cuda",
-                             mesh=None):
+                             mesh=None, key_bytes: int = 4):
     """Sort whole records: (key, global id, payload row).
 
     keys/ids: (N,) uint32 (numpy or u32 tensors) of the held workers, as
@@ -262,10 +274,21 @@ def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
     (Wl*W*C, pw) is the payload of the record at output position i. In
     the "late" mode the rows at pad positions are unspecified, as in the
     reference.
+
+    key_bytes 4 orders records by (key word, id). key_bytes 10 orders
+    them as the Sort Benchmark's valsort does, by the whole 10-byte key
+    as unsigned bytes, then by id: keys[i] holds key bytes 0-3
+    big-endian, payload[i, 0] bytes 4-7 and the high half of
+    payload[i, 1] bytes 8-9 (core/keytail.py). A call with more
+    neighbouring pairs of equal key words than the stage holds
+    (core/keytail.pair_capacity) sets `overflow`.
     """
     if mode not in PAYLOAD_MODES:
         raise ValueError(f"unknown payload mode {mode!r}: must be one of "
                          f"{PAYLOAD_MODES}")
+    if key_bytes not in keytail.KEY_BYTES:
+        raise ValueError(f"key_bytes={key_bytes!r}: must be one of "
+                         f"{keytail.KEY_BYTES}")
     w = num_workers
     wl, dev = held_workers(w, mesh, device)
     cfg = _config(w, cfg, impl, capacity_factor)
@@ -274,9 +297,14 @@ def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
         payload = u32.as_tensor(payload, dev)
         n = keys.shape[-1] // wl
         pw = payload.shape[-1]
+        if key_bytes == 10 and pw < keytail.TAIL_WORDS:
+            raise ValueError(f"key_bytes=10 needs key bytes 4-9 in "
+                             f"{keytail.TAIL_WORDS} payload words; rows "
+                             f"have {pw}")
         mk, mv, pout, valid, ovf = _sort_shard_payload(
             keys.reshape(wl, n), ids.reshape(wl, n),
-            payload.reshape(wl, n, pw), cfg=cfg, mode=mode, mesh=mesh)
+            payload.reshape(wl, n, pw), cfg=cfg, mode=mode,
+            key_bytes=key_bytes, mesh=mesh)
     return mk.reshape(-1), mv.reshape(-1), pout.reshape(-1, pw), valid, ovf
 
 

@@ -10,6 +10,10 @@
   counters    a MetricsRegistry held by this module, always on. The port
               counts into it host integers taken from shapes, never from
               device values (no `.item()`, no synchronise).
+  device_counts  counts that only the device knows, always on: 0-d
+              tensors added on the device where they are counted.
+              `value(name)` reads one as an int, which waits for the
+              device: read after the work.
 
 The spans of the in-memory sort, all opened in core/exoshuffle.py:
 
@@ -30,14 +34,21 @@ The spans of the in-memory sort, all opened in core/exoshuffle.py:
                        opened twice a call: the arrival slots built
                        before the merge, then the id and row gathers by
                        slot after it
+  sort.key_tail        _sort_shard_payload with key_bytes=10: the runs of
+                       equal key words found, their records ordered by
+                       key bytes 4-9 and moved (core/keytail.py)
   sort.overflow_check  around each any_across: the `.any()` and the
                        host's wait on it
 
-No name is a prefix of another. The counters, both counted in
-`_exchange` at each exchange: `exchange.records`, the records the held
-workers send (wl·n), and `exchange.slots`, the block slots they send
-(wl·W·C); the first over the second is the share of slots that carry a
-record, the rest pads.
+No name is a prefix of another. The counters: `exchange.records`, the
+records the held workers send (wl·n), and `exchange.slots`, the block
+slots they send (wl·W·C), both host integers counted in `_exchange` at
+each exchange; the first over the second is the share of slots that
+carry a record, the rest pads. In `device_counts`: `key_tail.records`,
+counted in `_sort_shard_payload` with key_bytes=10, the records the
+key-tail stage found in runs of equal key words and ordered; over
+`exchange.records`, the share of records whose order needed the key's
+bytes 4-9.
 
 To take a trace of a sort:
 
@@ -61,6 +72,28 @@ from repro_torch.obs.metrics import MetricsRegistry
 
 counters = MetricsRegistry()
 
+
+class DeviceCounts:
+    """Named totals kept as 0-d tensors where they are counted: adding
+    launches a device add and never waits."""
+
+    def __init__(self):
+        self._totals: dict[str, torch.Tensor] = {}
+
+    def add(self, name: str, value: torch.Tensor) -> None:
+        total = self._totals.get(name)
+        self._totals[name] = value.detach().clone() if total is None \
+            else total + value
+
+    def value(self, name: str) -> int | None:
+        """The total as an int (waits for the device); None if never
+        counted."""
+        total = self._totals.get(name)
+        return None if total is None else int(total)
+
+
+device_counts = DeviceCounts()
+
 _OFF = contextlib.nullcontext()
 _profiling = torch._C._autograd._profiler_enabled
 
@@ -73,4 +106,4 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
-__all__ = ["counters", "span"]
+__all__ = ["counters", "device_counts", "span"]

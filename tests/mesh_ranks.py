@@ -80,6 +80,21 @@ def sorts(rank, world, store_path, cases):
     return out
 
 
+def key10_sort(rank, world, store_path, keys, ids, payload):
+    """distributed_sort_payload with key_bytes=10 on this rank's shard:
+    the key-tail stage on the rank's workers. Returns the outputs as
+    numpy and the overflow flag."""
+    from repro_torch.core.exoshuffle import distributed_sort_payload
+
+    with _mesh(rank, world, store_path) as mesh:
+        lo, hi = mesh.share(keys.shape[0])
+        res = distributed_sort_payload(
+            keys[lo:hi], ids[lo:hi], payload[lo:hi], num_workers=W,
+            mesh=mesh, key_bytes=10)
+    return tuple(t.numpy() if isinstance(t, torch.Tensor) else t
+                 for t in res)
+
+
 def oocore(rank, world, store_path, root, jobs):
     """The out-of-core sort of each (tag, plan) in `jobs`, in order, on
     an ObjectStore at `root` shared by all ranks; returns the merged

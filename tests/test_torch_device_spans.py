@@ -36,12 +36,13 @@ PAYLOAD_SPANS = ["exoshuffle.call", "sort.map", "sort.partition",
                  "sort.pack", "sort.exchange", "payload.pack",
                  "payload.exchange", "payload.join", "sort.merge",
                  "payload.join", "sort.overflow_check"]
-ALL_SPANS = set(PAYLOAD_SPANS)
+WIDE_SPANS = PAYLOAD_SPANS[:-1] + ["sort.key_tail", "sort.overflow_check"]
+ALL_SPANS = set(WIDE_SPANS)
 
 # entry ("headers": distributed_sort; else distributed_sort_payload in
-# that mode): the spans it opens, in order
+# that mode, ".key10": with key_bytes=10): the spans it opens, in order
 ENTRIES = {"through": PAYLOAD_SPANS, "late": HEADER_SPANS,
-           "headers": HEADER_SPANS}
+           "headers": HEADER_SPANS, "through.key10": WIDE_SPANS}
 
 
 def _records(n, seed=0):
@@ -57,8 +58,9 @@ def _sort(entry, w=W, n=N, capacity_factor=1.5):
     kw = dict(num_workers=w, device="cpu", capacity_factor=capacity_factor)
     if entry == "headers":
         return exoshuffle.distributed_sort(keys, ids, **kw)
-    return exoshuffle.distributed_sort_payload(keys, ids, payload,
-                                               mode=entry, **kw)
+    mode, _, wide = entry.partition(".")
+    return exoshuffle.distributed_sort_payload(
+        keys, ids, payload, mode=mode, key_bytes=10 if wide else 4, **kw)
 
 
 def _program_ranges(prof):
@@ -125,6 +127,33 @@ def test_exchange_counters_advance_per_call(entry, size, monkeypatch):
             calls * w * n
         assert device.counters.counter_value("exchange.slots") == \
             calls * w * w * capacity
+
+
+def test_key_tail_counter_counts_the_records_in_runs(monkeypatch):
+    monkeypatch.setattr(device, "device_counts", device.DeviceCounts())
+    keys, ids, payload = _records(N)
+    keys[1::3] = keys[0::3][:len(keys[1::3])]  # runs of equal key words
+    want = 0
+    for calls in (1, 2):
+        mk, _, _, valid, _ = exoshuffle.distributed_sort_payload(
+            keys, ids, payload, num_workers=W, device="cpu", key_bytes=10)
+        seg = mk.numpy().reshape(W, -1)
+        for d in range(W):
+            _, counts = np.unique(seg[d, :int(valid[d])], return_counts=True)
+            want += int(counts[counts > 1].sum())
+        assert want > calls * N // 2
+        assert device.device_counts.value("key_tail.records") == want
+    assert "key_tail.records" not in device.counters.snapshot()["counters"]
+
+
+def test_device_counts_add_on_the_device_and_read_as_ints():
+    counts = device.DeviceCounts()
+    assert counts.value("x") is None
+    one = torch.tensor(3, dtype=torch.int64)
+    counts.add("x", one)
+    one += 1  # the total holds its own copy
+    counts.add("x", torch.tensor(5, dtype=torch.int64))
+    assert counts.value("x") == 8 and isinstance(counts.value("x"), int)
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRIES))
