@@ -4,11 +4,15 @@ Port of src/repro/core/payload.py. A gensort record is a key + payload;
 the shuffle kernels sort (key: u32, id: u32) headers, and this module
 decides how the wide payload rows follow their header:
 
-  - "through" (paper-faithful): the payload rows ride the shuffle's
-    exchange beside their headers, and a slot join puts them in output
-    order: the merge carries each received record's arrival slot (block
-    p, position j: p*C + j) in place of its id, and the ids and rows are
-    then gathered by slot (`arrival_slots`, `join_by_slot`);
+  - "through" (paper-faithful): the merge carries each received
+    record's arrival slot (block p, position j: p*C + j) in place of its
+    id (`arrival_slots`), and the ids and payload rows are gathered by
+    slot after it. On a rank mesh the rows ride the shuffle's exchange
+    beside their headers and `join_by_slot` gathers the received rows.
+    Without a mesh every producer's rows are in the process's own
+    tensor, so `gather_rows_by_slot` gathers each output row once,
+    straight from its producer's input (block p = slot // C is the
+    producer): no send blocks, no exchange of rows;
 
   - "late": the shuffle moves only the headers; after the final merge
     each worker fetches the payload rows of its output records from
@@ -20,7 +24,9 @@ is core/collectives.all_to_all_tiled, (Wl_src, W_dst, C, ...) ->
 (Wl_dst, W_src, C, ...): a transpose without a mesh. Ids are u32 tensors
 (int32 bit storage); every comparison, division and subtraction on them
 runs on int64 carriers (kernels/u32.py), so the pad id 0xFFFFFFFF and
-ids >= 2^31 keep their unsigned order and wrap as the reference's do.
+ids >= 2^31 keep their unsigned order and wrap as the reference's do;
+`gather_rows_by_slot` alone compares the int32 bits, against bounds
+below 2^31 where the two orders give the same answer.
 
 Global record ids: id // records_per_worker is the producing worker (the
 data/gensort.py layout). The slot join relies on it: each source block
@@ -39,11 +45,13 @@ from repro_torch.kernels import u32
 
 
 def take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-worker row gather: rows (W, m, pw), idx (W, k) int64 indices
-    into each worker's m rows -> (W, k, pw)."""
+    """Per-worker row gather: rows (W, m, pw), idx (W, k) int64 (or, with
+    W = 1, int32) indices into each worker's m rows -> (W, k, pw)."""
     w, m, pw = rows.shape
-    base = torch.arange(w, dtype=torch.int64, device=idx.device)[:, None] * m
-    flat = rows.reshape(w * m, pw).index_select(0, (idx + base).reshape(-1))
+    if w > 1:
+        idx = idx + torch.arange(w, dtype=torch.int64,
+                                 device=idx.device)[:, None] * m
+    flat = rows.reshape(w * m, pw).index_select(0, idx.reshape(-1))
     return flat.reshape(w, idx.shape[-1], pw)
 
 
@@ -60,11 +68,11 @@ def align_payload_to_merge(recv_ids, recv_payload, merged_ids):
     all join the first pad row in arrival order.
 
     The through mode no longer calls it: its merge carries arrival slots
-    and `join_by_slot` gathers by them, which gives the same rows
-    without the sort and the search, because under the id layout above
-    the (key, slot) and (key, id) orders agree. It stays as the port's
-    counterpart of the reference's join and the oracle the slot join is
-    tested against.
+    and `join_by_slot` or `gather_rows_by_slot` gathers by them, which
+    gives the same rows without the sort and the search, because under
+    the id layout above the (key, slot) and (key, id) orders agree. It
+    stays as the port's counterpart of the reference's join and the
+    oracle the slot join is tested against.
     """
     m = recv_ids.shape[-1]
     sids, perm = torch.sort(u32.widen(recv_ids), dim=-1, stable=True)
@@ -105,15 +113,66 @@ def join_by_slot(recv_ids, recv_payload, merged_slots, rcounts):
     `align_payload_to_merge` joins every pad id: its id is the pad id,
     its row that pad's row. Worked out on the device, with no sync.
     """
-    m = recv_ids.shape[-1]
+    slot = _pads_to_first_pad(merged_slots, rcounts).to(torch.int64)
+    return torch.gather(recv_ids, -1, slot), take_rows(recv_payload, slot)
+
+
+def _pads_to_first_pad(merged_slots, rcounts):
+    """merged_slots (W, m) int32 with each pad slot replaced by the
+    worker's first pad of arrival order (block p's slot p*C + rcounts[p]
+    for the first p with rcounts[p] < C; m - 1 where every block is
+    full, which leaves no pad to replace). Worked out on the device."""
+    m = merged_slots.shape[-1]
     cap = m // rcounts.shape[-1]
     rc = rcounts.to(torch.int64)
     block = torch.arange(rc.shape[-1], dtype=torch.int64,
                          device=rc.device) * cap
     first_pad = torch.where(rc < cap, block + rc, m - 1).amin(-1, True)
-    slot = torch.where(merged_slots == u32.PAD, first_pad.to(torch.int32),
-                       merged_slots).to(torch.int64)
-    return torch.gather(recv_ids, -1, slot), take_rows(recv_payload, slot)
+    return torch.where(merged_slots == u32.PAD, first_pad.to(torch.int32),
+                       merged_slots)
+
+
+def gather_rows_by_slot(recv_ids, payload, merged_slots, rcounts,
+                        records_per_worker: int):
+    """The ids and payload rows of the merged records, gathered straight
+    from their producers' input rows: the through mode without a mesh.
+
+    recv_ids: (W, m) u32 ids in arrival order (m = W_src*C); payload:
+    (W, n, pw) every producer's input rows (n = records_per_worker, all
+    W producers in this process); merged_slots: (W, m) the merge's
+    `arrival_slots` lanes; rcounts: (W, W_src) int32. Returns (ids,
+    rows), (W, m) and (W, m, pw) in merged order, bit for bit those of
+    packing each block's rows, exchanging them and `join_by_slot`: a pad
+    slot takes the first pad of arrival order, the id in slot s is
+    recv_ids[s], and its row is producer p = s // C's local row
+    min((id - p*n) mod 2^32, n - 1), the row the pack would have sent
+    (pad and foreign ids clamp to the producer's last row). The row of
+    each arrival slot is worked out in arrival order, where p is the
+    block, and gathered by slot with the id. Indices are int32: more
+    than 2^31 slots or input rows in the process are refused.
+    """
+    w, m = recv_ids.shape
+    w_src = rcounts.shape[-1]
+    n = int(records_per_worker)
+    pw = payload.shape[-1]
+    if w * m > 1 << 31 or w_src * n > 1 << 31:
+        raise ValueError(f"{w} x {m} slots of {w_src} x {n} rows: more "
+                         "than 2^31 in one process")
+    dev = recv_ids.device
+    # The flat input row of each arrival slot: in [lo, hi] of block p's
+    # producer, ids outside it (as u32: below lo or above hi, pads
+    # among them) on hi. lo + n <= 2^31, so the int32 bits compare as
+    # the u32 values do on both sides.
+    lo = torch.arange(w_src, dtype=torch.int32, device=dev)[:, None] * n
+    hi = lo + (n - 1)
+    rv = recv_ids.reshape(w, w_src, m // w_src)
+    row = torch.where(rv < lo, hi, torch.minimum(rv, hi)).reshape(-1)
+    base = torch.arange(w, dtype=torch.int32, device=dev)[:, None] * m
+    slot = (_pads_to_first_pad(merged_slots, rcounts) + base).reshape(-1)
+    ids = recv_ids.reshape(-1).index_select(0, slot).reshape(w, m)
+    rows = take_rows(payload.reshape(1, w_src * n, pw),
+                     row.index_select(0, slot)[None])
+    return ids, rows.reshape(w, m, pw)
 
 
 def exchange_payload_blocks(block_payload: torch.Tensor,

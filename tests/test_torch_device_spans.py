@@ -32,12 +32,14 @@ W, N, PW = 4, 1 << 12, 3
 HEADER_SPANS = ["exoshuffle.call", "sort.map", "sort.partition",
                 "sort.pack", "sort.exchange", "sort.merge",
                 "sort.overflow_check"]
+# Without a mesh the through mode gathers each row from its producer
+# inside `payload.join`: `payload.pack` and `payload.exchange` open only
+# on a rank mesh (tests/test_torch_direct_rows.py), and must not here.
 PAYLOAD_SPANS = ["exoshuffle.call", "sort.map", "sort.partition",
-                 "sort.pack", "sort.exchange", "payload.pack",
-                 "payload.exchange", "payload.join", "sort.merge",
+                 "sort.pack", "sort.exchange", "payload.join", "sort.merge",
                  "payload.join", "sort.overflow_check"]
 WIDE_SPANS = PAYLOAD_SPANS[:-1] + ["sort.key_tail", "sort.overflow_check"]
-ALL_SPANS = set(WIDE_SPANS)
+ALL_SPANS = set(WIDE_SPANS) | {"payload.pack", "payload.exchange"}
 
 # entry ("headers": distributed_sort; else distributed_sort_payload in
 # that mode, ".key10": with key_bytes=10): the spans it opens, in order
