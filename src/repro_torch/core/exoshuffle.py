@@ -19,23 +19,17 @@ Blocks are padded to capacity = next_pow2(n/W * capacity_factor), and
 `overflow` reports whether any block on any rank exceeded it (the
 reference's pmax: collectives.any_across). `distributed_sort_payload`
 sorts whole records: the payload rows follow their headers by one of
-core/payload.py's modes; in the through mode the merge carries each
-received record's arrival slot in place of its id, and the ids and rows
-are gathered by slot after it (without a mesh the rows straight from
-their producers' input: they are never packed or exchanged). With
-`key_bytes=10` the records carry the Sort Benchmark's whole 10-byte
-key, bytes 4-9 in their first two payload words, and core/keytail.py
-orders the runs of equal leading words by those bytes after the merge.
+core/payload.py's modes, which also decides how the rows move; in the
+through mode the merge carries each received record's arrival slot in
+place of its id, and the ids and rows are gathered by slot after it.
+With `key_bytes=10` the records carry the Sort Benchmark's whole
+10-byte key, bytes 4-9 in their first two payload words, and
+core/keytail.py orders the runs of equal leading words by those bytes
+after the merge.
 
-Each stage runs inside an obs/device span (`sort.map`, `sort.partition`,
-`sort.pack`, `sort.exchange`, `sort.merge`, the through mode's
-`payload.*`, `sort.key_tail`, `sort.overflow_check`, all in
-`exoshuffle.call`), a range on the trace only while a torch profiler
-captures; the exchange counts the records and the block slots it sends
-(`exchange.records`, `exchange.slots`), the through mode without a
-mesh the slots whose rows it gathers from their producers
-(`payload.direct_rows`), the key-tail stage the records it finds in
-runs (`key_tail.records`, in obs/device.device_counts).
+Each stage runs inside an obs/device span, and the exchange and the
+key-tail stage count into obs/device's counters: its docstring is the
+table of both.
 """
 from __future__ import annotations
 
@@ -45,8 +39,8 @@ import math
 import torch
 
 from repro_torch.core import keytail, sortlib
-from repro_torch.core.collectives import (all_to_all_tiled, any_across,
-                                          worker_ids)
+from repro_torch.core import payload as pay
+from repro_torch.core.collectives import all_to_all_tiled, any_across
 from repro_torch.core.keyspace import KeySpace
 from repro_torch.kernels import u32
 from repro_torch.obs import device as obs_device
@@ -197,26 +191,6 @@ def distributed_sort(keys, vals, *, num_workers: int,
 PAYLOAD_MODES = ("through", "late")
 
 
-def _send_payload_rows(bv, payload, *, n: int, capacity: int, mesh):
-    """The through mode's payload hop on a rank mesh: the rows of each
-    sent block, block-aligned with its headers, exchanged beside them.
-
-    bv: (Wl_src, W_dst, C) the sent blocks' ids; payload (Wl, n, pw).
-    Local row = min(id - my*n, n-1) in u32 arithmetic, so pad ids take
-    the sender's last row. Returns (Wl_dst, W_src, C, pw)."""
-    from repro_torch.core import payload as pay
-
-    wl, w = bv.shape[:2]
-    with span("payload.pack"):
-        my = worker_ids(mesh, w, bv.device)
-        diff = (u32.widen(bv) - my[:, None, None] * n) & u32.MASK
-        local_row = torch.clamp(diff, max=n - 1).reshape(wl, -1)
-        bp = pay.take_rows(payload, local_row)
-    with span("payload.exchange"):
-        return pay.exchange_payload_blocks(
-            bp.reshape(wl, w, capacity, bp.shape[-1]), mesh)
-
-
 def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
                         mode: str, key_bytes: int, mesh=None):
     """Whole-record sort for the held workers: headers through the merge,
@@ -228,39 +202,25 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
     In through mode the merge sorts (key, arrival slot) pairs, which
     under the ids' layout (id // n == producing worker) order as the
     (key, id) pairs do, and the ids and payload rows are gathered by
-    slot after it. Without a mesh every producer's rows are in `payload`,
-    so each output row is gathered once, from its producer's input
-    (core/payload.gather_rows_by_slot; counter `payload.direct_rows`).
-    On a mesh the rows cross ranks: they are packed into blocks beside
-    their headers, exchanged, and gathered from the received blocks
-    (`_send_payload_rows`, core/payload.join_by_slot). Both give the
-    same output. The late mode merges (key, id). With key_bytes 10 the
-    key-tail stage then orders the runs of equal key words by key bytes
-    4-9 (core/keytail.py)."""
-    from repro_torch.core import payload as pay
-
+    slot after it; core/payload decides from `mesh` whether the rows
+    cross ranks (`send_rows`, before the merge) and where the gather
+    reads them (`gather_by_slot`). The late mode merges (key, id). With
+    key_bytes 10 the key-tail stage then orders the runs of equal key
+    words by key bytes 4-9 (core/keytail.py)."""
     wl, n = keys.shape
     w = cfg.num_workers
     capacity = cfg.block_capacity(n)
     bv, rk, rv, rcounts, overflow = _exchange(keys, ids, cfg=cfg,
                                               capacity=capacity, mesh=mesh)
     if mode == "through":
-        rp = None if mesh is None else _send_payload_rows(
-            bv, payload, n=n, capacity=capacity, mesh=mesh)
+        rows = pay.send_rows(bv, payload, capacity=capacity, mesh=mesh)
         with span("payload.join"):
             slots = pay.arrival_slots(rcounts, capacity)
         with span("sort.merge"):
             mk, ms = sortlib.merge_runs(rk, slots, impl=cfg.impl)
         with span("payload.join"):
-            if rp is None:
-                obs_device.counters.counter("payload.direct_rows",
-                                            wl * w * capacity)
-                mv, pout = pay.gather_rows_by_slot(
-                    rv.reshape(wl, -1), payload, ms, rcounts, n)
-            else:
-                mv, pout = pay.join_by_slot(
-                    rv.reshape(wl, -1), rp.reshape(wl, -1, rp.shape[-1]),
-                    ms, rcounts)
+            mv, pout = pay.gather_by_slot(rv.reshape(wl, -1), rows, ms,
+                                          rcounts, mesh=mesh)
         fetch_overflow = False
     else:
         with span("sort.merge"):

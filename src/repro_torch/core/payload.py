@@ -6,13 +6,15 @@ decides how the wide payload rows follow their header:
 
   - "through" (paper-faithful): the merge carries each received
     record's arrival slot (block p, position j: p*C + j) in place of its
-    id (`arrival_slots`), and the ids and payload rows are gathered by
-    slot after it. On a rank mesh the rows ride the shuffle's exchange
-    beside their headers and `join_by_slot` gathers the received rows.
-    Without a mesh every producer's rows are in the process's own
-    tensor, so `gather_rows_by_slot` gathers each output row once,
-    straight from its producer's input (block p = slot // C is the
-    producer): no send blocks, no exchange of rows;
+    id (`arrival_slots`), and `gather_by_slot` gathers the ids and
+    payload rows by slot after it. Where the rows are is this module's
+    decision, taken from the mesh: on a rank mesh they cross ranks, so
+    `send_rows` packs them beside their headers and exchanges them
+    before the merge, and the gather reads the received blocks; without
+    a mesh every producer's rows are in the process's own tensor, and
+    the gather reads each output row straight from its producer's input
+    (block p = slot // C is the producer): no send blocks, no exchange
+    of rows;
 
   - "late": the shuffle moves only the headers; after the final merge
     each worker fetches the payload rows of its output records from
@@ -25,15 +27,16 @@ is core/collectives.all_to_all_tiled, (Wl_src, W_dst, C, ...) ->
 (int32 bit storage); every comparison, division and subtraction on them
 runs on int64 carriers (kernels/u32.py), so the pad id 0xFFFFFFFF and
 ids >= 2^31 keep their unsigned order and wrap as the reference's do;
-`gather_rows_by_slot` alone compares the int32 bits, against bounds
-below 2^31 where the two orders give the same answer.
+`gather_by_slot` without a mesh alone compares the int32 bits, against
+bounds below 2^31 where the two orders give the same answer.
 
 Global record ids: id // records_per_worker is the producing worker (the
-data/gensort.py layout). The slot join relies on it: each source block
-is a slice of its producer's (key, id)-sorted run, and every id of
-producer p lies below every id of producer q > p, so among equal keys
-the slot order is the id order and merging (key, slot) gives the same
-order as merging (key, id), record for record.
+data/gensort.py layout), and a producer's row of an id is `local_rows`.
+The slot join relies on the layout: each source block is a slice of its
+producer's (key, id)-sorted run, and every id of producer p lies below
+every id of producer q > p, so among equal keys the slot order is the
+id order and merging (key, slot) gives the same order as merging
+(key, id), record for record.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch
 from repro_torch.core import sortlib
 from repro_torch.core.collectives import all_to_all_tiled, worker_ids
 from repro_torch.kernels import u32
+from repro_torch.obs.device import span
 
 
 def take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -67,12 +71,12 @@ def align_payload_to_merge(recv_ids, recv_payload, merged_ids):
     then a left binary search of each merged id. Pad ids (0xFFFFFFFF)
     all join the first pad row in arrival order.
 
-    The through mode no longer calls it: its merge carries arrival slots
-    and `join_by_slot` or `gather_rows_by_slot` gathers by them, which
-    gives the same rows without the sort and the search, because under
-    the id layout above the (key, slot) and (key, id) orders agree. It
-    stays as the port's counterpart of the reference's join and the
-    oracle the slot join is tested against.
+    The through mode does not call it: its merge carries arrival slots
+    and `gather_by_slot` gathers by them, which gives the same rows
+    without the sort and the search, because under the id layout above
+    the (key, slot) and (key, id) orders agree. It stays as the port's
+    counterpart of the reference's join and the oracle the slot gather
+    is tested against.
     """
     m = recv_ids.shape[-1]
     sids, perm = torch.sort(u32.widen(recv_ids), dim=-1, stable=True)
@@ -87,8 +91,9 @@ def arrival_slots(rcounts: torch.Tensor, capacity: int) -> torch.Tensor:
     Returns (Wl, W_src, C) u32: p*C + j where j < min(rcounts[d, p], C),
     0xFFFFFFFF (the pad) elsewhere. The cap keeps an overflowing block's
     C real records, as sortlib.gather_range_blocks packs them. W_src*C
-    is at most 2^31, so a slot's int32 bits are its value (join_by_slot
-    works on them as int32) and every slot sorts below the pad.
+    is at most 2^31, so a slot's int32 bits are its value
+    (`gather_by_slot` works on them as int32) and every slot sorts below
+    the pad.
     """
     w = rcounts.shape[-1]
     if w * capacity > 1 << 31:
@@ -101,20 +106,89 @@ def arrival_slots(rcounts: torch.Tensor, capacity: int) -> torch.Tensor:
     return torch.where(j < rcounts[..., None], slots, u32.PAD)
 
 
-def join_by_slot(recv_ids, recv_payload, merged_slots, rcounts):
+def local_rows(ids, first_ids, n: int) -> torch.Tensor:
+    """The row of each u32 id among a producer's n rows whose first id
+    is `first_ids` (int64, broadcast against ids): min((id - first)
+    mod 2^32, n - 1) on int64 carriers, so ids outside those rows (the
+    pad, and foreign ids below them as above them) take the last row."""
+    return torch.clamp((u32.widen(ids) - first_ids) & u32.MASK, max=n - 1)
+
+
+def send_rows(sent_ids, payload, *, capacity: int, mesh=None):
+    """The through mode's rows where `gather_by_slot` reads them, moved
+    before the merge (so that an exchange may overlap it).
+
+    sent_ids: (Wl_src, W_dst, C) the sent blocks' ids; payload: (Wl, n,
+    pw) the held workers' input rows. Without a mesh every producer's
+    rows are already in the process: returns `payload` itself, and
+    nothing is packed or exchanged. On a rank mesh the rows cross ranks:
+    each sent block's rows are packed beside its headers (`local_rows`,
+    so pad and foreign ids take the sender's last row) and exchanged;
+    returns (Wl_dst, W_src, C, pw), aligned with the received ids."""
+    if mesh is None:
+        return payload
+    wl, w = sent_ids.shape[:2]
+    n, pw = payload.shape[1:]
+    with span("payload.pack"):
+        first = worker_ids(mesh, w, sent_ids.device)[:, None, None] * n
+        bp = take_rows(payload,
+                       local_rows(sent_ids, first, n).reshape(wl, -1))
+    with span("payload.exchange"):
+        return exchange_payload_blocks(bp.reshape(wl, w, capacity, pw),
+                                       mesh)
+
+
+def gather_by_slot(recv_ids, rows, merged_slots, rcounts, *, mesh=None):
     """The ids and payload rows of the merged records, by arrival slot.
 
-    recv_ids: (W, m) u32 ids in arrival order (m = W_src*C);
-    recv_payload: (W, m, pw) rows aligned with recv_ids; merged_slots:
-    (W, m) the merge's `arrival_slots` lanes; rcounts: (W, W_src) int32.
-    Returns (ids, rows): (W, m) and (W, m, pw) in merged order. A pad
-    slot takes the first pad of arrival order (block p's slot
-    p*C + rcounts[p] for the first p with rcounts[p] < C), as
-    `align_payload_to_merge` joins every pad id: its id is the pad id,
-    its row that pad's row. Worked out on the device, with no sync.
+    recv_ids: (Wl, m) u32 ids in arrival order (m = W_src*C); rows:
+    `send_rows`'s, for the same mesh; merged_slots: (Wl, m) the merge's
+    `arrival_slots` lanes; rcounts: (Wl, W_src) int32. Returns (ids,
+    rows): (Wl, m) and (Wl, m, pw) in merged order. The id in slot s is
+    recv_ids[s], and a pad slot takes the first pad of arrival order
+    (block p's slot p*C + rcounts[p] for the first p with rcounts[p] <
+    C), as `align_payload_to_merge` joins every pad id. The row of slot
+    s is, on a mesh, row s of the received blocks; without a mesh,
+    producer p = s // C's input row local_rows(id, p*n, n), the row a
+    pack would have sent. One `take_rows` gathers them, and nothing
+    waits for the device.
+
+    Without a mesh the indices are int32: more than 2^31 slots or input
+    rows in the process are refused. On a mesh each worker's slots are
+    int32 (`arrival_slots` keeps them below 2^31) and the flat index is
+    int64, since a rank may hold more than 2^31 slots in all.
     """
-    slot = _pads_to_first_pad(merged_slots, rcounts).to(torch.int64)
-    return torch.gather(recv_ids, -1, slot), take_rows(recv_payload, slot)
+    w, m = recv_ids.shape
+    pw = rows.shape[-1]
+    if mesh is None:
+        w_src, n = rcounts.shape[-1], rows.shape[1]
+        if w * m > 1 << 31 or w_src * n > 1 << 31:
+            raise ValueError(f"{w} x {m} slots of {w_src} x {n} rows: more "
+                             "than 2^31 in one process")
+        row, index = _input_rows(recv_ids, w_src, n), torch.int32
+    else:
+        row, index = None, torch.int64
+    base = torch.arange(w, dtype=index, device=recv_ids.device)[:, None] * m
+    slot = (_pads_to_first_pad(merged_slots, rcounts) + base).reshape(-1)
+    ids = recv_ids.reshape(-1).index_select(0, slot).reshape(w, m)
+    flat = rows.reshape(1, -1, pw)
+    if row is not None:
+        slot = row.index_select(0, slot)
+    return ids, take_rows(flat, slot[None]).reshape(w, m, pw)
+
+
+def _input_rows(recv_ids, w_src: int, n: int):
+    """The flat input row of each arrival slot without a mesh, (Wl*m,)
+    int32: block p's producer's row p*n + local_rows(id, p*n, n), on the
+    int32 bits. While W_src*n <= 2^31 the bits compare as the u32 values
+    do on both sides of [p*n, p*n + n - 1], so ids below it or above it
+    (the pad among them) take its last row, as in `local_rows`."""
+    w, m = recv_ids.shape
+    lo = torch.arange(w_src, dtype=torch.int32,
+                      device=recv_ids.device)[:, None] * n
+    hi = lo + (n - 1)
+    rv = recv_ids.reshape(w, w_src, m // w_src)
+    return torch.where(rv < lo, hi, torch.minimum(rv, hi)).reshape(-1)
 
 
 def _pads_to_first_pad(merged_slots, rcounts):
@@ -130,49 +204,6 @@ def _pads_to_first_pad(merged_slots, rcounts):
     first_pad = torch.where(rc < cap, block + rc, m - 1).amin(-1, True)
     return torch.where(merged_slots == u32.PAD, first_pad.to(torch.int32),
                        merged_slots)
-
-
-def gather_rows_by_slot(recv_ids, payload, merged_slots, rcounts,
-                        records_per_worker: int):
-    """The ids and payload rows of the merged records, gathered straight
-    from their producers' input rows: the through mode without a mesh.
-
-    recv_ids: (W, m) u32 ids in arrival order (m = W_src*C); payload:
-    (W, n, pw) every producer's input rows (n = records_per_worker, all
-    W producers in this process); merged_slots: (W, m) the merge's
-    `arrival_slots` lanes; rcounts: (W, W_src) int32. Returns (ids,
-    rows), (W, m) and (W, m, pw) in merged order, bit for bit those of
-    packing each block's rows, exchanging them and `join_by_slot`: a pad
-    slot takes the first pad of arrival order, the id in slot s is
-    recv_ids[s], and its row is producer p = s // C's local row
-    min((id - p*n) mod 2^32, n - 1), the row the pack would have sent
-    (pad and foreign ids clamp to the producer's last row). The row of
-    each arrival slot is worked out in arrival order, where p is the
-    block, and gathered by slot with the id. Indices are int32: more
-    than 2^31 slots or input rows in the process are refused.
-    """
-    w, m = recv_ids.shape
-    w_src = rcounts.shape[-1]
-    n = int(records_per_worker)
-    pw = payload.shape[-1]
-    if w * m > 1 << 31 or w_src * n > 1 << 31:
-        raise ValueError(f"{w} x {m} slots of {w_src} x {n} rows: more "
-                         "than 2^31 in one process")
-    dev = recv_ids.device
-    # The flat input row of each arrival slot: in [lo, hi] of block p's
-    # producer, ids outside it (as u32: below lo or above hi, pads
-    # among them) on hi. lo + n <= 2^31, so the int32 bits compare as
-    # the u32 values do on both sides.
-    lo = torch.arange(w_src, dtype=torch.int32, device=dev)[:, None] * n
-    hi = lo + (n - 1)
-    rv = recv_ids.reshape(w, w_src, m // w_src)
-    row = torch.where(rv < lo, hi, torch.minimum(rv, hi)).reshape(-1)
-    base = torch.arange(w, dtype=torch.int32, device=dev)[:, None] * m
-    slot = (_pads_to_first_pad(merged_slots, rcounts) + base).reshape(-1)
-    ids = recv_ids.reshape(-1).index_select(0, slot).reshape(w, m)
-    rows = take_rows(payload.reshape(1, w_src * n, pw),
-                     row.index_select(0, slot)[None])
-    return ids, rows.reshape(w, m, pw)
 
 
 def exchange_payload_blocks(block_payload: torch.Tensor,
@@ -227,11 +258,11 @@ def late_fetch_payload(final_ids, local_payload, *, num_workers: int,
     # Requests travel requester -> producer.
     recv_req = all_to_all_tiled(req_blocks, mesh,
                                 what="requests")  # (Wl_prod, W_req, C)
-    # Serve: the local row of each requested id (u32 arithmetic: foreign
-    # and pad ids wrap and clamp to the last row).
+    # Serve: the local row of each requested id (foreign and pad ids
+    # take the last row).
     my = worker_ids(mesh, w, dev)[:, None, None] * n
-    local_row = torch.clamp((u32.widen(recv_req) - my) & u32.MASK, max=n - 1)
-    served = take_rows(local_payload, local_row.reshape(wl, -1))
+    served = take_rows(local_payload,
+                       local_rows(recv_req, my, n).reshape(wl, -1))
     pw = served.shape[-1]
     # Rows travel producer -> requester (the reverse exchange).
     back = all_to_all_tiled(served.reshape(wl, w, capacity, pw), mesh,

@@ -122,10 +122,6 @@ class ArchConfig:
         """Sub-quadratic state: SSM or hybrid (windowed + SSM) archs."""
         return self.family in ("ssm", "hybrid")
 
-    @property
-    def has_decoder(self) -> bool:
-        return True  # all assigned archs autoregress (whisper is enc-dec)
-
     def params_dense(self) -> int:
         """Approximate parameter count (embedding + blocks), for rooflines."""
         d, l = self.d_model, self.n_layers

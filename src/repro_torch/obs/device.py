@@ -15,7 +15,8 @@
               `value(name)` reads one as an int, which waits for the
               device: read after the work.
 
-The spans of the in-memory sort, all opened in core/exoshuffle.py:
+The spans of the in-memory sort, opened in core/exoshuffle.py and, for
+the through mode's rows on a rank mesh, core/payload.py:
 
   exoshuffle.call      distributed_sort, distributed_sort_payload: the
                        whole call; every span below nests in it
@@ -24,20 +25,20 @@ The spans of the in-memory sort, all opened in core/exoshuffle.py:
   sort.pack            _exchange: header block gathers, pads, overflow flag
   sort.exchange        _exchange: the key, id and count exchanges (a
                        transpose copy without a mesh)
-  payload.pack         _send_payload_rows (through mode on a rank mesh
-                       only): row index arithmetic and the send-side row
-                       gather
-  payload.exchange     _send_payload_rows (through mode on a rank mesh
+  payload.pack         core/payload.send_rows (through mode on a rank mesh
+                       only): the rows' local indices and the send-side
+                       row gather
+  payload.exchange     core/payload.send_rows (through mode on a rank mesh
                        only): the rows' exchange
   sort.merge           _shuffle_round, _sort_shard_payload: the merge
                        tournament
-  payload.join         _sort_shard_payload (through mode): the slot join,
-                       opened twice a call: the arrival slots built
-                       before the merge, then the id and row gathers by
-                       slot after it; without a mesh the only row move,
-                       each row gathered from its producer's input
-                       (core/payload.gather_rows_by_slot), on a mesh
-                       from the received blocks (join_by_slot)
+  payload.join         _sort_shard_payload (through mode), opened twice a
+                       call: the arrival slots built before the merge
+                       (core/payload.arrival_slots), then the ids and rows
+                       gathered by slot after it (core/payload.
+                       gather_by_slot); without a mesh the only row move,
+                       each row gathered from its producer's input, on a
+                       mesh from the received blocks
   sort.key_tail        _sort_shard_payload with key_bytes=10: the runs of
                        equal key words found, their records ordered by
                        key bytes 4-9 and moved (core/keytail.py)
@@ -48,14 +49,11 @@ No name is a prefix of another. The counters: `exchange.records`, the
 records the held workers send (wl·n), and `exchange.slots`, the block
 slots they send (wl·W·C), both host integers counted in `_exchange` at
 each exchange; the first over the second is the share of slots that
-carry a record, the rest pads. `payload.direct_rows`, the slots whose
-ids and rows the through mode without a mesh gathers straight from the
-producers' input (wl·W·C a call, counted in `_sort_shard_payload`;
-nothing on a mesh or in the late mode). In `device_counts`:
-`key_tail.records`, counted in `_sort_shard_payload` with key_bytes=10,
-the records the key-tail stage found in runs of equal key words and
-ordered; over `exchange.records`, the share of records whose order
-needed the key's bytes 4-9.
+carry a record, the rest pads. In `device_counts`: `key_tail.records`,
+counted in `_sort_shard_payload` with key_bytes=10, the records the
+key-tail stage found in runs of equal key words and ordered; over
+`exchange.records`, the share of records whose order needed the key's
+bytes 4-9.
 
 To take a trace of a sort:
 

@@ -384,10 +384,6 @@ class ShuffleReport:
         return self.num_reducers
 
     @property
-    def runs_per_partition(self) -> int:
-        return self.runs_per_reducer
-
-    @property
     def oversubscription(self) -> float:
         """Dataset size / per-split working set (>1 = out-of-core)."""
         return self.total_records / self.working_set_records
@@ -456,11 +452,6 @@ class ClusterShuffleReport:
     def metrics(self) -> dict:
         """The run's MetricsRegistry snapshot (see obs/metrics.py)."""
         return self.report.metrics
-
-    @property
-    def records_per_second(self) -> float:
-        secs = self.report.map_seconds + self.report.reduce_seconds
-        return self.report.total_records / secs if secs > 0 else 0.0
 
 
 __all__ = [

@@ -34,7 +34,7 @@ HEADER_SPANS = ["exoshuffle.call", "sort.map", "sort.partition",
                 "sort.overflow_check"]
 # Without a mesh the through mode gathers each row from its producer
 # inside `payload.join`: `payload.pack` and `payload.exchange` open only
-# on a rank mesh (tests/test_torch_direct_rows.py), and must not here.
+# on a rank mesh (tests/test_torch_through_rows.py), and must not here.
 PAYLOAD_SPANS = ["exoshuffle.call", "sort.map", "sort.partition",
                  "sort.pack", "sort.exchange", "payload.join", "sort.merge",
                  "payload.join", "sort.overflow_check"]
