@@ -8,7 +8,8 @@ Run from the repo root on a machine with one H100. It
   1. prints the environment (torch, CUDA, the card's name and power
      limit from nvidia-smi) and a probe of which torch dtype round-trips
      uint32 bits on the card;
-  2. builds the four CUDA kernels from src/repro_torch/kernels/csrc/;
+  2. builds the CUDA kernels from src/repro_torch/kernels/csrc/ (the
+     four sort kernels and the through mode's slot gather);
   3. holds each kernel bit-identical to its plain torch version at the
      main path's shapes and on small adversarial cases, and times the
      kernel, the plain version and one PyTorch library call that
@@ -19,7 +20,10 @@ Run from the repo root on a machine with one H100. It
      host µs of one wrapper call on its own; beside them an empty
      kernel's launch (the launch floor) and one whole reduce window
      through merge_fragments_device (host µs); and, unlisted, the sort at
-     the payload path's (8, 2^21);
+     the payload path's (8, 2^21); the slot gather
+     (kernels/slot_gather.py) is held at SLOT_GATHER_HOLDS and timed at
+     the resident cells' shape, with its plain version (the aten
+     composition it replaced) as the yardstick;
   4. runs the port's out-of-core CloudSort at 2^20 records on the card and
      on the CPU, with both reduce merges: the output etags must agree;
   5. runs the full sort — 100-byte records, 4 waves of 2^24 records
@@ -32,7 +36,8 @@ Run from the repo root on a machine with one H100. It
      distributed_sort_payload, W = 8, 23 payload words): `payload.identity`
      holds both modes on the card against the CPU's plain versions at
      2^20 records, and `payload.key10.identity` the whole 10-byte key
-     (key_bytes=10) the same way, with its kernels held and the
+     (key_bytes=10) the same way (each requires the slot gather to
+     have launched), with its kernels held and the
      key-tail stage run alone under the sync debug mode
      (`payload.key10.nosync`); `payload.split` splits one call of each
      mode at 2^24 records by kernel (torch.profiler), beside the map
@@ -395,7 +400,7 @@ def kernel_split(fn, *args):
 
 #: Name prefixes of this port's kernels in a profiler trace.
 OUR_KERNELS = ("bitonic_tile", "bitonic_global", "partition_count",
-               "merge_tiles", "kway_rank_scatter")
+               "merge_tiles", "kway_rank_scatter", "gather_slot_rows")
 
 
 def device_split(fn, *args):
@@ -558,6 +563,8 @@ def check_equal(name, got, want):
     the outputs' unsigned 32-bit values."""
     err = 0
     for g, w in zip(got, want):
+        if g.device == w.device and g.shape == w.shape and torch.equal(g, w):
+            continue  # equal where they lie: no copy to the host
         g, w = g.cpu(), w.cpu()
         if g.shape != w.shape:
             raise AssertionError(f"{name}: shapes {tuple(g.shape)} vs "
@@ -570,6 +577,69 @@ def check_equal(name, got, want):
             raise AssertionError(f"{name}: kernel and plain disagree "
                                  f"(shape {tuple(g.shape)}, max |diff| {err})")
     return err
+
+
+#: (Wl, W_src, C, n, pw, fill, from_input) of the slot gather's holds in
+#: phase_kernels: m = W_src * C not a multiple of 32, every slot a pad, no
+#: pad, pw 1 and 8, the received rows of a mesh, and leading blocks full
+#: (the first pad of arrival order past block 0) with both row maps.
+SLOT_GATHER_HOLDS = ((3, 5, 37, 50, 23, "half", True),
+                     (2, 4, 16, 16, 23, "pads", True),
+                     (2, 4, 16, 16, 23, "full", True),
+                     (4, 8, 100, 90, 1, "half", True),
+                     (4, 8, 100, 90, 8, "half", True),
+                     (8, 8, 3001, 2048, 23, "half", True),
+                     (3, 5, 37, 0, 23, "half", False),
+                     (4, 8, 100, 0, 8, "full", False),
+                     (2, 4, 16, 0, 23, "pads", False),
+                     (4, 8, 100, 90, 23, "first_full", True),
+                     (3, 5, 37, 0, 23, "first_full", False))
+
+
+def slot_gather_case(wl, w_src, cap, n, pw, fill, from_input, gen):
+    """Inputs of kernels/slot_gather.gather_slot_rows on the card:
+    (recv_ids, rows, merged_slots, rcounts). Block p of each worker holds
+    rcounts[d, p] records (fill "half": a quarter to three quarters of C,
+    "pads": none, "full": C, "first_full": blocks 0 .. k_d - 1 full, k_d
+    from 1 to W_src - 1 and worker 0's W_src - 1, the rest as "half", so
+    that the first pad of arrival order lies in block k_d); their ids are producer p's rows (p*n + j),
+    but one in ten is drawn from the whole u32 range (ids outside the
+    layout) and each block's last real id is the pad id's value; the
+    merged slots are the real slots in a random order, then the pads.
+    Rows are the producers' input (w_src, n, pw) where from_input, else
+    one received row a slot."""
+    from repro_torch.kernels import u32
+
+    dev = torch.device(DEVICE)
+    m = w_src * cap
+    if fill in ("half", "first_full"):
+        rc = torch.randint(cap // 4, 3 * cap // 4 + 1, (wl, w_src),
+                           generator=gen, device=dev)
+        if fill == "first_full":
+            k = torch.randint(1, w_src, (wl, 1), generator=gen, device=dev)
+            k[0] = w_src - 1
+            rc = torch.where(torch.arange(w_src, device=dev) < k, cap, rc)
+    else:
+        rc = torch.full((wl, w_src), cap if fill == "full" else 0,
+                        device=dev)
+    shape = (wl, w_src, cap)
+    j = torch.arange(cap, device=dev)
+    p = torch.arange(w_src, device=dev)[:, None]
+    ids = p * max(n, 1) + torch.randint(0, max(n, 1), shape, generator=gen,
+                                        device=dev)
+    ids = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.1,
+                      torch.randint(0, 1 << 32, shape, generator=gen,
+                                    device=dev), ids)
+    ids = torch.where(j == rc[..., None] - 1, 0xFFFFFFFF, ids)
+    valid = (j < rc[..., None]).reshape(wl, m)
+    recv = u32.narrow(torch.where(valid, ids.reshape(wl, m), 0xFFFFFFFF))
+    order = torch.where(valid, torch.rand((wl, m), generator=gen,
+                                          device=dev), 2.0).argsort(-1)
+    slots = torch.where(valid.gather(-1, order), order, 0xFFFFFFFF)
+    rows = torch.randint(-(1 << 31), 1 << 31,
+                         (w_src, n, pw) if from_input else (wl * m, pw),
+                         generator=gen, dtype=torch.int32, device=dev)
+    return recv, rows, u32.narrow(slots), rc.to(torch.int32)
 
 
 def phase_kernels(plan):
@@ -835,6 +905,35 @@ def phase_kernels(plan):
                (torch.cat([u32.pack(*a), u32.pack(*bb)], dim=-1),),
                32 * n * L, 2 * n * L, listed=i == 0)
         del a, bb
+    # the slot gather: held at SLOT_GATHER_HOLDS, then timed at the
+    # resident cells' shape (8 workers of 2^24 slots, half of them pads,
+    # from 2^26 input rows of 23 words) beside the plain version, which is
+    # the aten composition the kernel replaced (the library column too)
+    from repro_torch.kernels.slot_gather import (gather_slot_rows,
+                                                 gather_slot_rows_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for case in SLOT_GATHER_HOLDS:
+        args, fi = slot_gather_case(*case, gen), case[-1]
+        check_equal(f"slot_gather {case}",
+                    gather_slot_rows(*args, from_input=fi),
+                    gather_slot_rows_plain(*args, from_input=fi))
+    emit(phase="kernels.slot_gather", checks=len(SLOT_GATHER_HOLDS),
+         cases=SLOT_GATHER_HOLDS, ok=True)
+    wl = w_src = w
+    cap, n_rows, pw = 1 << 21, 1 << 23, PAYLOAD_WORDS
+    args = slot_gather_case(wl, w_src, cap, n_rows, pw, "half", True, gen)
+    s_slots, r_rows = wl * w_src * cap, w_src * n_rows
+    record("gather_slot_rows", csrc + "slot_gather.cu",
+           "none (the reference joins the payload in XLA)",
+           [s_slots, r_rows, pw], args,
+           lambda *a: gather_slot_rows(*a, from_input=True),
+           lambda *a: gather_slot_rows_plain(*a, from_input=True),
+           lambda *a: gather_slot_rows_plain(*a, from_input=True), args,
+           s_slots * (4 * pw + 8) + r_rows * 4 * pw, s_slots,
+           pad_slots=int((args[2] == -1).sum()))
+    del args
+    torch.cuda.empty_cache()
     # the launch floor: an empty kernel, launched through the same ctypes
     # path, timed like the kernels (back-to-back calls between events)
     noop = _build.function("noop")
@@ -958,12 +1057,14 @@ def require_launched(phase, launches, names):
             raise AssertionError(f"{phase}: kernel {n} was never launched")
 
 
-def hold_shapes(phase, wrappers, extra=()):
+def hold_shapes(phase, wrappers, extra=(), mesh_workers=NUM_WORKERS):
     """Each kernel bit-identical to its plain version on the card at every
     shape the phase launched it at: the wrappers' `shapes`, and those in
     `extra` (dicts of shapes reported by other processes), on fresh
     random inputs, rows sorted where the kernel takes sorted rows. Run
     after the phase's launches are read: these launches are not counted.
+    mesh_workers: the workers a rank holds where the slot gather ran on a
+    mesh (its logged R is 0).
     """
     from repro_torch.kernels import u32
     from repro_torch.kernels.bitonic_sort import bitonic_sort_blocks_plain
@@ -1027,18 +1128,37 @@ def hold_shapes(phase, wrappers, extra=()):
             raise AssertionError(f"{phase}: no wrapper launches the indexed "
                                  f"merge at n={n}, K={k}")
         check_equal(label("indexed merge", (n, k, L)), got, want)
+    if "gather_slot_rows" in wrappers:
+        from repro_torch.kernels.slot_gather import gather_slot_rows_plain
+
+        # W = NUM_WORKERS producers; S = Wl * W * C slots from R = W * n
+        # input rows, Wl = W without a mesh, on a mesh R = 0 and Wl =
+        # mesh_workers
+        w = NUM_WORKERS
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for s_slots, r_rows, pw in sorted(shapes["gather_slot_rows"]):
+            fi = r_rows > 0
+            wl = w if fi else mesh_workers
+            args = slot_gather_case(wl, w, s_slots // (wl * w), r_rows // w,
+                                    pw, "half", fi, gen)
+            check_equal(label("slot gather", (s_slots, r_rows, pw)),
+                        wrappers["gather_slot_rows"](*args, from_input=fi),
+                        gather_slot_rows_plain(*args, from_input=fi))
+            del args
     torch.cuda.empty_cache()
     held = {n: [list(sh) for sh in sorted(s)] for n, s in shapes.items()}
     emit(phase=f"{phase}.hold", shapes=held,
          checks=sum(len(s) for s in held.values()), identical=True)
 
 
-def phase_payload_identity():
+def phase_payload_identity(wrappers):
     """Both payload modes at IDENTITY_RECORDS on the card and on
     the CPU (plain versions): keys, ids, valid counts and the overflow
     flag bit-identical; payload rows whole in the through mode, each
     worker's valid prefix in the late mode (the reference leaves pad
-    rows unspecified there; whether they agree too is reported)."""
+    rows unspecified there; whether they agree too is reported). The
+    through mode's slot gather must have launched; every kernel is held
+    at the shapes it launched at. Returns the launches."""
     from repro_torch.core.exoshuffle import (ShuffleConfig,
                                              distributed_sort_payload)
     from repro_torch.data import gensort
@@ -1049,6 +1169,7 @@ def phase_payload_identity():
     payload = gensort.gen_payload(ids, PAYLOAD_WORDS)
     keys, ids, payload = (u32.to_numpy(t) for t in (keys, ids, payload))
     cfg = ShuffleConfig(num_workers=w, reducers_per_worker=4)
+    zero_launches(wrappers)
     for mode in ("through", "late"):
         outs, secs = {}, {}
         for device in (DEVICE, "cpu"):
@@ -1082,6 +1203,11 @@ def phase_payload_identity():
              payload_words=PAYLOAD_WORDS, rows=int(card[2].shape[0]),
              overflow=bool(card[4]), card_s=secs[DEVICE], cpu_s=secs["cpu"],
              identical=True, pad_rows_identical=whole)
+    launches = read_launches(wrappers)
+    emit(phase="payload.identity.kernels", launches=launches)
+    require_launched("payload.identity", launches, ("gather_slot_rows",))
+    hold_shapes("payload.identity", wrappers)
+    return launches
 
 
 def phase_payload_key10_identity(wrappers):
@@ -1156,7 +1282,7 @@ def phase_payload_key10_identity(wrappers):
          new_kernels=[])
     require_launched("payload.key10.identity", launches,
                      ("bitonic_sort_blocks", "partition_offsets_blocks",
-                      "merge_sorted_pairs"))
+                      "merge_sorted_pairs", "gather_slot_rows"))
     hold_shapes("payload.key10", wrappers)
     # the stage alone: no host wait inside it
     dev = torch.device(DEVICE)
@@ -1250,6 +1376,7 @@ def phase_payload_full(wrappers, log):
             expect[k] += calls
         expect["partition_offsets_blocks"] += calls * (mode == "late")
         expect["merge_sorted_pairs"] += calls * rounds
+        expect["gather_slot_rows"] += calls * (mode == "through")
         del sk, si, sp, ks, iss, ps
         torch.cuda.empty_cache()
     del keys, ids, payload, rows
@@ -1264,13 +1391,15 @@ def phase_payload_full(wrappers, log):
     expect["bitonic_sort_blocks"] += 1
     expect["partition_offsets_blocks"] += 1 + w  # + each worker's R1 split
     expect["merge_sorted_pairs"] += rounds
+    expect["gather_slot_rows"] += 1
     launches = read_launches(wrappers)
     if launches != expect:
         raise AssertionError(f"payload: launches {launches}, expected "
                              f"{expect} (one sort and one worker split a "
                              "call, one producer split a late fetch, "
                              f"{rounds} merge rounds, the example's "
-                             "reducer splits)")
+                             "reducer splits, one slot gather a through "
+                             "call)")
     hold_shapes("payload", wrappers)
     return launches
 
@@ -1621,8 +1750,11 @@ def phase_mesh_gloo(full, wrappers, log, nccl1_shapes):
     rank launched at (here and in mesh.nccl1) held bit-identical
     (`mesh.hold`). Then the in-memory distributed_sort_payload over the
     same ranks in both payload modes, bit-identical (sha256 of the whole
-    output) to the one-process run's."""
+    output) to the one-process run's, the through mode's slot gather
+    launched on every rank and every shape a rank launched at held
+    (`mesh.payload.hold`). Returns the launches of both parts."""
     from repro_torch.examples import cloudsort_e2e
+    from repro_torch.kernels.slot_gather import gather_slot_rows
 
     g = MESH_GLOO_RANKS
     plan = mesh_plan(full, MESH_GLOO_RECORDS)
@@ -1662,7 +1794,9 @@ def phase_mesh_gloo(full, wrappers, log, nccl1_shapes):
     if not one["valsort_ok"] or got["gloo"] != got["one"]:
         raise AssertionError("mesh.gloo: output etags differ from the "
                              "mesh=None run's")
-    digests = {}
+    payload_wrappers = dict(wrappers, gather_slot_rows=gather_slot_rows)
+    zero_launches(payload_wrappers)
+    digests, rank_kernels = {}, []
     for mode in ("through", "late"):
         e2e = ["--records", str(IDENTITY_RECORDS), "--payload-mode", mode,
                "--device", f"{DEVICE}:0"]
@@ -1678,13 +1812,26 @@ def phase_mesh_gloo(full, wrappers, log, nccl1_shapes):
             raise AssertionError(f"mesh.gloo: distributed_sort_payload "
                                  f"({mode}) over {g} ranks differs from the "
                                  "one-process run")
+        gathers = [k["launches"]["gather_slot_rows"]
+                   for k in ranked["rank_kernels"]]
+        if mode == "through" and min(gathers) < 1:
+            raise AssertionError(f"mesh.gloo.payload: slot gather launches "
+                                 f"by rank {gathers}: some rank never "
+                                 "launched it")
+        rank_kernels += ranked["rank_kernels"]
         emit(phase="mesh.gloo.payload", mode=mode, records=IDENTITY_RECORDS,
              ranks=g, seconds=ranked_s, sort_s=ranked["sort_s"],
-             one_process_sort_s=alone["sort_s"], bit_identical=True)
+             one_process_sort_s=alone["sort_s"], bit_identical=True,
+             rank_gather_launches=gathers)
+    payload_launches = {n: sum(k["launches"][n] for k in rank_kernels)
+                        for n in payload_wrappers}
+    hold_shapes("mesh.payload", payload_wrappers,
+                [k["shapes"] for k in rank_kernels], NUM_WORKERS // g)
     emit(phase="mesh.gloo.identity", outputs=len(got["one"]),
          etags_identical=True, one_process_map_s=one["map_s"],
-         one_process_reduce_s=one["reduce_s"], payload_digests=digests)
-    return launches
+         one_process_reduce_s=one["reduce_s"], payload_digests=digests,
+         payload_launches=payload_launches)
+    return launches, payload_launches
 
 
 def phase_quickstart(wrappers, log):
@@ -3833,11 +3980,17 @@ def run(log):
     seconds["full"] = time.perf_counter() - t_phase
     phase_cost_tco(out)
 
-    # ---- 6. the payload modes ----
-    timed("payload.identity", phase_payload_identity)
+    # ---- 6. the payload modes (their through mode adds the slot gather) ----
+    from repro_torch.kernels.slot_gather import gather_slot_rows
+
+    payload_wrappers = dict(wrappers, gather_slot_rows=gather_slot_rows)
+    by_phase["payload.identity"] = timed(
+        "payload.identity", phase_payload_identity, payload_wrappers)
     by_phase["payload.key10"] = timed("payload.key10.identity",
-                                      phase_payload_key10_identity, wrappers)
-    by_phase["payload"] = timed("payload", phase_payload_full, wrappers, log)
+                                      phase_payload_key10_identity,
+                                      payload_wrappers)
+    by_phase["payload"] = timed("payload", phase_payload_full,
+                                payload_wrappers, log)
 
     # ---- 7.-9. the fleets: processes, the skew pass, functions ----
     by_phase["fleet"] = timed("fleet", phase_fleet, full, wrappers)
@@ -3848,8 +4001,8 @@ def run(log):
     # ---- 10. the rank mesh: one NCCL rank, gloo ranks on the one card ----
     by_phase["mesh.nccl1"], nccl1_shapes = timed(
         "mesh.nccl1", phase_mesh_nccl1, full, wrappers, log)
-    by_phase["mesh.gloo"] = timed("mesh.gloo", phase_mesh_gloo, full,
-                                  wrappers, log, nccl1_shapes)
+    by_phase["mesh.gloo"], by_phase["mesh.gloo.payload"] = timed(
+        "mesh.gloo", phase_mesh_gloo, full, wrappers, log, nccl1_shapes)
 
     # ---- 11.-13. the other users of the shuffle ----
     by_phase["quickstart"] = timed("quickstart", phase_quickstart, wrappers,
@@ -3900,9 +4053,9 @@ def run(log):
     emit_cost_flops(costs)
 
     # ---- 20. the kernels line, then the ok line ----
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["launches_by_phase"] = {p: c[row["name"]]
+    for row in rows:  # None: the phase does not count that kernel
+        row["launches"] = launches.get(row["name"])
+        row["launches_by_phase"] = {p: c.get(row["name"])
                                     for p, c in by_phase.items()}
     emit(phase="phase.seconds", seconds=seconds, card=SMI)
     emit(phase="done", seconds=time.perf_counter() - t_start)

@@ -27,8 +27,9 @@ is core/collectives.all_to_all_tiled, (Wl_src, W_dst, C, ...) ->
 (int32 bit storage); every comparison, division and subtraction on them
 runs on int64 carriers (kernels/u32.py), so the pad id 0xFFFFFFFF and
 ids >= 2^31 keep their unsigned order and wrap as the reference's do;
-`gather_by_slot` without a mesh alone compares the int32 bits, against
-bounds below 2^31 where the two orders give the same answer.
+the plain version of `gather_by_slot`'s gather (kernels/slot_gather.py)
+alone compares the int32 bits without a mesh, against bounds below 2^31
+where the two orders give the same answer.
 
 Global record ids: id // records_per_worker is the producing worker (the
 data/gensort.py layout), and a producer's row of an id is `local_rows`.
@@ -45,6 +46,7 @@ import torch
 from repro_torch.core import sortlib
 from repro_torch.core.collectives import all_to_all_tiled, worker_ids
 from repro_torch.kernels import u32
+from repro_torch.kernels.slot_gather import gather_slot_rows
 from repro_torch.obs.device import span
 
 
@@ -150,60 +152,24 @@ def gather_by_slot(recv_ids, rows, merged_slots, rcounts, *, mesh=None):
     C), as `align_payload_to_merge` joins every pad id. The row of slot
     s is, on a mesh, row s of the received blocks; without a mesh,
     producer p = s // C's input row local_rows(id, p*n, n), the row a
-    pack would have sent. One `take_rows` gathers them, and nothing
-    waits for the device.
+    pack would have sent. One `kernels/slot_gather.gather_slot_rows`
+    gathers both (one kernel launch on the card), and nothing waits for
+    the device.
 
-    Without a mesh the indices are int32: more than 2^31 slots or input
-    rows in the process are refused. On a mesh each worker's slots are
-    int32 (`arrival_slots` keeps them below 2^31) and the flat index is
-    int64, since a rank may hold more than 2^31 slots in all.
+    Without a mesh the plain version's indices are int32: more than
+    2^31 slots or input rows in the process are refused. On a mesh each
+    worker's slots are int32 (`arrival_slots` keeps them below 2^31) and
+    the flat index is int64, since a rank may hold more than 2^31 slots
+    in all.
     """
-    w, m = recv_ids.shape
-    pw = rows.shape[-1]
     if mesh is None:
+        w, m = recv_ids.shape
         w_src, n = rcounts.shape[-1], rows.shape[1]
         if w * m > 1 << 31 or w_src * n > 1 << 31:
             raise ValueError(f"{w} x {m} slots of {w_src} x {n} rows: more "
                              "than 2^31 in one process")
-        row, index = _input_rows(recv_ids, w_src, n), torch.int32
-    else:
-        row, index = None, torch.int64
-    base = torch.arange(w, dtype=index, device=recv_ids.device)[:, None] * m
-    slot = (_pads_to_first_pad(merged_slots, rcounts) + base).reshape(-1)
-    ids = recv_ids.reshape(-1).index_select(0, slot).reshape(w, m)
-    flat = rows.reshape(1, -1, pw)
-    if row is not None:
-        slot = row.index_select(0, slot)
-    return ids, take_rows(flat, slot[None]).reshape(w, m, pw)
-
-
-def _input_rows(recv_ids, w_src: int, n: int):
-    """The flat input row of each arrival slot without a mesh, (Wl*m,)
-    int32: block p's producer's row p*n + local_rows(id, p*n, n), on the
-    int32 bits. While W_src*n <= 2^31 the bits compare as the u32 values
-    do on both sides of [p*n, p*n + n - 1], so ids below it or above it
-    (the pad among them) take its last row, as in `local_rows`."""
-    w, m = recv_ids.shape
-    lo = torch.arange(w_src, dtype=torch.int32,
-                      device=recv_ids.device)[:, None] * n
-    hi = lo + (n - 1)
-    rv = recv_ids.reshape(w, w_src, m // w_src)
-    return torch.where(rv < lo, hi, torch.minimum(rv, hi)).reshape(-1)
-
-
-def _pads_to_first_pad(merged_slots, rcounts):
-    """merged_slots (W, m) int32 with each pad slot replaced by the
-    worker's first pad of arrival order (block p's slot p*C + rcounts[p]
-    for the first p with rcounts[p] < C; m - 1 where every block is
-    full, which leaves no pad to replace). Worked out on the device."""
-    m = merged_slots.shape[-1]
-    cap = m // rcounts.shape[-1]
-    rc = rcounts.to(torch.int64)
-    block = torch.arange(rc.shape[-1], dtype=torch.int64,
-                         device=rc.device) * cap
-    first_pad = torch.where(rc < cap, block + rc, m - 1).amin(-1, True)
-    return torch.where(merged_slots == u32.PAD, first_pad.to(torch.int32),
-                       merged_slots)
+    return gather_slot_rows(recv_ids, rows, merged_slots, rcounts,
+                            from_input=mesh is None)
 
 
 def exchange_payload_blocks(block_payload: torch.Tensor,

@@ -20,7 +20,9 @@ torch.distributed group (launch/mesh.py), each generating and sorting
 the shard of its W/G workers; rank 0 gathers the outputs for valsort.
 `main(argv)` returns the run's numbers (rank 0's), among them `digest`,
 a sha256 of the whole output (keys, ids, payload rows and counts, in
-worker order): equal digests mean bit-identical outputs.
+worker order): equal digests mean bit-identical outputs. With --ranks G
+they also hold `rank_kernels`, each spawned rank's kernel launches and
+the shapes launched at (the four sort kernels' and the slot gather's).
 """
 import argparse
 import hashlib
@@ -70,14 +72,26 @@ def main(argv=None) -> dict:
             return run(args, mesh)
     if args.ranks == 1:
         return run(args, None)
-    return spawn_ranks(_rank_main, args.ranks, args)[0]
+    ranks = spawn_ranks(_rank_main, args.ranks, args)
+    return dict(ranks[0]["out"], rank_kernels=[r["kernels"] for r in ranks])
 
 
 def _rank_main(rank: int, world: int, store_path: str, args) -> dict:
+    """One spawned rank: join the group, run, report this process's
+    kernel launches and the shapes launched at."""
+    from repro_torch.kernels.slot_gather import gather_slot_rows
+    from repro_torch.shuffle.worker_main import kernel_launches, kernel_shapes
+
     with init_rank_mesh(NUM_WORKERS, backend=args.backend, device=args.device,
                         rank=rank, world=world,
                         store_path=store_path) as mesh:
-        return run(args, mesh)
+        out = run(args, mesh)
+    return {"out": out, "kernels": {
+        "rank": rank,
+        "launches": dict(kernel_launches(),
+                         gather_slot_rows=gather_slot_rows.launches),
+        "shapes": dict(kernel_shapes(),
+                       gather_slot_rows=sorted(gather_slot_rows.shapes))}}
 
 
 def digest(*arrays) -> str:

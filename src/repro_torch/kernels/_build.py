@@ -45,6 +45,8 @@ SIGNATURES = {
                      [_P] * 6 + [_LL, _LL, _LL, _P]),
     "kway_merge": ("kway_merge", "rt_kway_merge_indexed",
                    [_P] * 9 + [_LL] * 4 + [_P]),
+    "slot_gather": ("slot_gather", "rt_gather_slot_rows",
+                    [_P] * 6 + [_LL] * 5 + [_I, _P]),
     "noop": ("kway_merge", "rt_noop", [_P]),
 }
 SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})

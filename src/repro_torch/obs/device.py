@@ -36,9 +36,10 @@ the through mode's rows on a rank mesh, core/payload.py:
                        call: the arrival slots built before the merge
                        (core/payload.arrival_slots), then the ids and rows
                        gathered by slot after it (core/payload.
-                       gather_by_slot); without a mesh the only row move,
-                       each row gathered from its producer's input, on a
-                       mesh from the received blocks
+                       gather_by_slot: one launch of the slot gather
+                       kernel on the card); without a mesh the only row
+                       move, each row gathered from its producer's input,
+                       on a mesh from the received blocks
   sort.key_tail        _sort_shard_payload with key_bytes=10: the runs of
                        equal key words found, their records ordered by
                        key bytes 4-9 and moved (core/keytail.py)

@@ -30,6 +30,7 @@ from repro_torch.kernels.bitonic_sort import bitonic_sort_blocks
 from repro_torch.kernels.merge_sorted import merge_sorted_pairs
 from repro_torch.kernels.range_partition import (partition_offsets_blocks,
                                                  searchsorted_reference)
+from repro_torch.kernels.slot_gather import gather_slot_rows
 from repro_torch.shuffle.runtime import merge_fragments
 
 torch.set_num_threads(2)
@@ -352,7 +353,9 @@ def _meta(shape, dtype=torch.int32):
     lambda: partition_offsets_blocks(_meta((2, 8)), _meta((3,))),
     lambda: merge_sorted_pairs(*[_meta((2, 8))] * 4),
     lambda: tkm.merge_sorted_pairs_indexed(*[_meta((2, 8))] * 6),
-], ids=["sort", "partition", "merge", "merge_indexed"])
+    lambda: gather_slot_rows(_meta((2, 8)), _meta((2, 4, 3)), _meta((2, 8)),
+                             _meta((2, 2)), from_input=True),
+], ids=["sort", "partition", "merge", "merge_indexed", "slot_gather"])
 @pytest.mark.parametrize("capability,error", [((9, 0), "nvcc"),
                                               ((8, 0), "Hopper")])
 def test_wrappers_launch_or_raise_off_cpu(call, capability, error,
@@ -380,7 +383,14 @@ def test_wrappers_launch_or_raise_off_cpu(call, capability, error,
      merge_sorted_pairs, (2, 8)),
     (lambda: tkm.merge_sorted_pairs_indexed(*[_meta((2, 8))] * 6),
      tkm.merge_sorted_pairs_indexed, (2, 2, 8)),
-], ids=["sort", "partition", "merge", "merge_indexed"])
+    (lambda: gather_slot_rows(_meta((2, 8)), _meta((2, 4, 3)), _meta((2, 8)),
+                              _meta((2, 2)), from_input=True),
+     gather_slot_rows, (16, 8, 3)),
+    (lambda: gather_slot_rows(_meta((2, 8)), _meta((2, 2, 4, 3)),
+                              _meta((2, 8)), _meta((2, 2)), from_input=False),
+     gather_slot_rows, (16, 0, 3)),
+], ids=["sort", "partition", "merge", "merge_indexed", "slot_gather",
+        "slot_gather_received"])
 def test_wrappers_count_each_launch_and_its_shape(call, wrapper, shape,
                                                   monkeypatch):
     """Off the CPU each wrapper adds one launch and its launch shape

@@ -26,7 +26,9 @@ from repro_torch.core import exoshuffle as texo
 from repro_torch.core import keytail, sortlib
 from repro_torch.core import payload as tpay
 from repro_torch.data import gensort
-from repro_torch.kernels import u32
+from repro_torch.kernels import _build, u32
+from repro_torch.kernels.slot_gather import (gather_slot_rows,
+                                             gather_slot_rows_plain)
 from repro_torch.launch import mesh as tmesh
 from repro_torch.obs import device
 from repro_torch.obs.metrics import MetricsRegistry
@@ -49,6 +51,12 @@ CASES = {
     "zipf_w8_pw8_overflow": (8, 8, "zipf", 1.0),
     "first_full_w2_pw8": (2, 8, "first_full", 1.5),
     "first_full_w8_pw23": (8, 23, "first_full", 1.5),
+    # every block holds exactly C records: no pad slot at all
+    "all_full_w8_pw23": (8, 23, "all_full", 1.0),
+    # every key in worker 0's range: worker 1's blocks are all empty
+    "all_empty_w2_pw8": (2, 8, "all_empty", 2.0),
+    # real keys 0xFFFFFFFF, the pad's key, merged beside the pads
+    "pad_keys_w8_pw1": (8, 1, "pad_keys", 1.5),
 }
 
 
@@ -57,17 +65,25 @@ def _inputs(name):
     ids = np.arange(N, dtype=np.uint32)
     rng = np.random.default_rng(sum(map(ord, name)))
     n = N // w
+    per = 16 // w  # key values in each worker's range
     if src == "zipf":
         keys = gensort.skewed_keys(ids, "zipf", seed=5)
+    elif src == "all_full":
+        # each source sends n / W records to every worker
+        keys = VALUES[np.arange(N) % n // (n // w) * per
+                      + rng.integers(0, per, N)]
+    elif src == "all_empty":
+        keys = VALUES[rng.integers(0, per, N)]
     else:
         keys = VALUES[rng.integers(0, 16, N)]
+    if src == "pad_keys":
+        keys[rng.random(N) < 0.05] = PAD
     if src == "first_full":
         # source 0 sends exactly C records to worker 0 (the values of its
         # range) and the rest elsewhere: that block is full, so worker
         # 0's first pad in arrival order lies in block 1
         cap = texo.ShuffleConfig(num_workers=w,
                                  capacity_factor=cf).block_capacity(n)
-        per = 16 // w
         keys[:cap] = VALUES[rng.integers(0, per, cap)]
         keys[cap:n] = VALUES[rng.integers(per, 16, n - cap)]
     payload = u32.to_numpy(gensort.gen_payload(
@@ -173,7 +189,7 @@ def test_through_rows_match_the_id_join(name, where, tmp_path):
     sk = u32.to_numpy(got[0]).reshape(w, -1).astype(np.int64)
     si = u32.to_numpy(got[1]).reshape(w, -1).astype(np.int64)
     pads = si == PAD
-    assert pads.any()
+    assert pads.any() != name.endswith("all_full_w8_pw23")
     if name.startswith("foreign_ids"):
         # most records' ids lie outside their producer's rows
         producer = np.arange(ids.size) // n
@@ -193,16 +209,26 @@ def test_through_rows_match_the_id_join(name, where, tmp_path):
                                   return_counts=True)
             cross += (by_key ** 2).sum() - (by_src ** 2).sum()
         assert cross // 2 > 100_000
+    rc, pw = rcounts.numpy(), payload.shape[-1]
+    rows = u32.to_numpy(got[2]).reshape(w, -1, pw)
+    if CASES[name][2] == "all_full":
+        assert (rc == cap).all()
+    if CASES[name][2] == "all_empty":
+        # worker 1 received nothing: every slot takes block 0's slot 0,
+        # the pad id and producer 0's last row
+        assert (rc[1] == 0).all() and pads[1].all()
+        np.testing.assert_array_equal(
+            rows[1], np.broadcast_to(payload[n - 1], rows[1].shape))
+    if CASES[name][2] == "pad_keys":
+        real = ~pads[w - 1]
+        assert (sk[w - 1][real] == PAD).sum() > 100
     if CASES[name][2] == "first_full":
-        rc = rcounts.numpy()
         assert rc[0, 0] == cap and (rc[0, 1:] < cap).all()
         # worker 0's pads carry the row of block 1's first pad, which
         # is source 1's last row, not source 0's
-        pw = payload.shape[-1]
-        rows = u32.to_numpy(got[2]).reshape(w, -1, pw)[0]
         np.testing.assert_array_equal(
-            rows[pads[0]],
-            np.broadcast_to(payload[2 * n - 1], rows[pads[0]].shape))
+            rows[0][pads[0]],
+            np.broadcast_to(payload[2 * n - 1], rows[0][pads[0]].shape))
 
 
 def test_arrival_slots():
@@ -286,6 +312,94 @@ def test_the_int32_row_form_is_local_rows():
     assert rows[0, :, 0].tolist() == want.tolist()
     # in range: the id's own row; elsewhere the producer's last
     assert want.reshape(w_src, cap)[1].tolist() == [6, 8, 11] + [11] * 6
+
+
+def _gather_args(w=2, w_src=3, cap=4, n=5, pw=3):
+    recv = torch.arange(w * w_src * cap, dtype=torch.int32).reshape(w, -1)
+    slots = torch.arange(w_src * cap, dtype=torch.int32).flip(0).repeat(
+        w, 1)
+    rcounts = torch.full((w, w_src), cap, dtype=torch.int32)
+    rows = torch.zeros((w_src, n, pw), dtype=torch.int32)
+    return recv, rows, slots, rcounts
+
+
+@pytest.mark.parametrize("bad,error", [
+    (lambda a: (a[0].to(torch.int64), *a[1:]), TypeError),
+    (lambda a: (a[0], a[1].to(torch.int64), *a[2:]), TypeError),
+    (lambda a: (*a[:3], a[3].to(torch.int64)), TypeError),
+    (lambda a: (a[0], a[1], a[2][:, :-1].contiguous(), a[3]), ValueError),
+    (lambda a: (a[0][:, :-1].contiguous(), a[1], a[2][:, :-1].contiguous(),
+                a[3]), ValueError),  # W_src does not divide m
+    (lambda a: (*a[:3], a[3][:1].contiguous()), ValueError),
+    (lambda a: (a[0], a[1][:2].contiguous(), *a[2:]), ValueError),
+    (lambda a: (a[0], a[1].reshape(-1, 3), *a[2:]), ValueError),
+    (lambda a: (a[0].t().contiguous().t(), *a[1:]), ValueError),
+    (lambda a: (a[0], a[1].transpose(0, 1), *a[2:]), ValueError),
+], ids=["ids_int64", "rows_int64", "rcounts_int64", "slots_shape",
+        "blocks_ragged", "rcounts_rows", "rows_producers", "rows_flat",
+        "ids_strided", "rows_strided"])
+def test_the_slot_gather_refuses_what_the_kernel_does_not_take(bad, error):
+    with pytest.raises(error):
+        gather_slot_rows(*bad(_gather_args()), from_input=True)
+
+
+def test_the_slot_gather_refuses_received_rows_of_another_count():
+    recv, _, slots, rcounts = _gather_args()
+    for rows in (torch.zeros((2, 11, 3), dtype=torch.int32),
+                 torch.zeros((24,), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="rows"):
+            gather_slot_rows(recv, rows, slots, rcounts, from_input=False)
+
+
+@pytest.mark.parametrize("from_input", [True, False])
+def test_a_cpu_tensor_takes_the_plain_version(from_input, monkeypatch):
+    def no_launch(*a, **k):
+        raise AssertionError("a CPU tensor reached the kernel")
+
+    monkeypatch.setattr(_build, "launch", no_launch)
+    monkeypatch.setattr(_build, "count_launch", no_launch)
+    recv, rows, slots, rcounts = _gather_args()
+    if not from_input:
+        rows = torch.arange(recv.numel() * 3, dtype=torch.int32).reshape(
+            2, 3, 4, 3)
+    got = gather_slot_rows(recv, rows, slots, rcounts, from_input=from_input)
+    want = gather_slot_rows_plain(recv, rows, slots, rcounts,
+                                  from_input=from_input)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("where", ["no_mesh", "rank_mesh"])
+def test_one_launch_a_gather_logs_slots_input_rows_and_width(
+        where, tmp_path, monkeypatch):
+    """Off the CPU `gather_by_slot` is one kernel launch, logged as (S,
+    R, pw): S slots gathered, R input rows read (W_src * n without a
+    mesh, 0 on one, where the rows are the received blocks). The launch
+    itself is stubbed: meta tensors, nothing runs."""
+    w, w_src, cap, n, pw = 8, 8, 16, 12, 23
+    meta = dict(dtype=torch.int32, device="meta")
+    recv = torch.empty((w, w_src * cap), **meta)
+    rcounts = torch.empty((w, w_src), **meta)
+    log = []
+    monkeypatch.setattr(_build, "launch", lambda *a: None)
+    monkeypatch.setattr(_build, "count_launch",
+                        lambda fn, attr="launches", n=1, shape=None:
+                        log.append((fn.__name__, attr, n, shape)))
+    if where == "no_mesh":
+        rows = torch.empty((w_src, n, pw), **meta)
+        ids, out = tpay.gather_by_slot(recv, rows, recv, rcounts)
+        assert log == [("gather_slot_rows", "launches", 1,
+                        (w * w_src * cap, w_src * n, pw))]
+    else:
+        rows = torch.empty((w, w_src, cap, pw), **meta)
+        mesh = _world_of_one(w, tmp_path)
+        try:
+            ids, out = tpay.gather_by_slot(recv, rows, recv, rcounts,
+                                           mesh=mesh)
+        finally:
+            mesh.close()
+        assert log == [("gather_slot_rows", "launches", 1,
+                        (w * w_src * cap, 0, pw))]
+    assert ids.shape == recv.shape and out.shape == (w, w_src * cap, pw)
 
 
 def test_a_rank_mesh_keeps_pack_exchange_and_join(tmp_path, monkeypatch):
