@@ -37,7 +37,10 @@ Run from the repo root on a machine with one H100. It
      holds both modes on the card against the CPU's plain versions at
      2^20 records, and `payload.key10.identity` the whole 10-byte key
      (key_bytes=10) the same way (each requires the slot gather to
-     have launched), with its kernels held and the
+     have launched), then once at splitters sampled on the card from
+     skewed keys (`payload.key10.sampled`, sample_fraction 2^-10, with
+     the splitters held against keyspace.sampled_boundaries at the
+     Daytona cell's (8, 2^23) keys), with its kernels held and the
      key-tail stage run alone under the sync debug mode
      (`payload.key10.nosync`); `payload.split` splits one call of each
      mode at 2^24 records by kernel (torch.profiler), beside the map
@@ -734,9 +737,10 @@ def phase_kernels(plan):
     for case in cases:
         # sort: below, at and above the warp span (512) and the tile (2^13),
         # and rows whose windows take 1..5 fused global substages
+        # (1, 2^16): the splitters' sample at the Daytona cell's size
         for shape in ((1, 1), (3, 2), (4, 256), (2, 512), (2, 4096),
-                      (2, 8192), (1, 1 << 14), (2, 1 << 15), (1, 1 << 17),
-                      (1, 1 << 19)):
+                      (2, 8192), (1, 1 << 14), (2, 1 << 15), (1, 1 << 16),
+                      (1, 1 << 17), (1, 1 << 19)):
             kc = u32.from_numpy(draw(case, shape), "cpu")
             vc = u32.from_numpy(rng.integers(0, 3, shape).astype(np.uint32),
                                 "cpu")
@@ -804,7 +808,8 @@ def phase_kernels(plan):
                     raise AssertionError(f"merge_fragments_device {case} "
                                          f"{sizes}: differs from numpy")
             n_checks += 1
-    for n in (1, 2, 100, 1000, 5000, 70000):  # non-pow2 sort_kv through ops
+    # sort_kv through ops: non-pow2 sizes, and the Daytona sample's 2^16
+    for n in (1, 2, 100, 1000, 5000, 65536, 70000):
         k, v = rand((n,)), rand((n,), 4)
         check_equal("sort_kv", ops.sort_kv(k, v),
                     ops.sort_kv(k.cpu(), v.cpu()))
@@ -1210,6 +1215,34 @@ def phase_payload_identity(wrappers):
     return launches
 
 
+def sampled_splitters_case(w, n=1 << 23, fraction=2**-10):
+    """core/exoshuffle.sampled_worker_boundaries on the card (the bitonic
+    kernel sorts the sample) against keyspace.sampled_boundaries on the
+    CPU, on the same (w, n) sorted skewed keys: identical splitters."""
+    from repro_torch.core import keyspace
+    from repro_torch.core.exoshuffle import (MIN_SAMPLES, ShuffleConfig,
+                                             sampled_worker_boundaries)
+    from repro_torch.kernels import u32
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wide = torch.randint(0, 2**32, (w, n), generator=gen, device=dev,
+                         dtype=torch.int64)
+    wide >>= torch.randint(0, 24, (w, n), generator=gen, device=dev,
+                           dtype=torch.int64)
+    wide = torch.sort(wide, dim=-1).values
+    got = sampled_worker_boundaries(u32.narrow(wide), fraction,
+                                    cfg=ShuffleConfig(num_workers=w))
+    step = max(1, min(round(1 / fraction), n // MIN_SAMPLES))
+    want = keyspace.sampled_boundaries(
+        u32.narrow(wide[:, step // 2::step].reshape(-1).cpu()), w)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("sampled_worker_boundaries differs from "
+                             "keyspace.sampled_boundaries")
+    return {"splitter_keys": w * n, "sample": w * (n // step),
+            "splitters_identical": True}
+
+
 def phase_payload_key10_identity(wrappers):
     """`payload.key10.identity`: the whole 10-byte key
     (distributed_sort_payload(..., key_bytes=10), core/keytail.py) on the
@@ -1220,7 +1253,10 @@ def phase_payload_key10_identity(wrappers):
     neighbour's key word and one in 2,048 its whole 10-byte key, so
     about 2,300 records lie in runs of equal key words (about 1,150
     pairs; the stage holds 4,096 at this size) and the id breaks some
-    ties.
+    ties. Then one through call on the card and on the CPU at splitters
+    sampled from skewed keys (a quarter of the records,
+    sample_fraction=2^-10): identical, no
+    overflow; and sampled_splitters_case at the Daytona cell's shape.
     The phase names the kernels the wide path launches and holds each
     bit-identical to its plain version at every shape it launched at;
     the key-tail stage launches none of its own. Then the stage alone on
@@ -1276,6 +1312,30 @@ def phase_payload_key10_identity(wrappers):
              key_bytes=10, tied_records=tied, rows=int(card[2].shape[0]),
              overflow=bool(card[4]), identical=True,
              pad_rows_identical=whole)
+    # sampled splitters (sample_fraction, CloudSort's Daytona skew) on a
+    # quarter of the records: the key word shifted right by a hash of
+    # the id mod 24, through mode
+    m = n // 4
+    skew = (keys[:m] >> ((ids[:m].astype(np.uint64) * 2654435761 % 2**32)
+                         % 24).astype(np.uint32))
+    outs = {}
+    for device in (DEVICE, "cpu"):
+        outs[device] = tuple(
+            t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+            for t in distributed_sort_payload(
+                skew, ids[:m], payload[:m], num_workers=w, device=device,
+                key_bytes=10, sample_fraction=2**-10))
+    card, cpu = outs[DEVICE], outs["cpu"]
+    if card[4] or not all(np.array_equal(a, b)
+                          for a, b in zip(card[:4], cpu[:4])):
+        raise AssertionError("payload.key10.sampled: card and CPU differ, "
+                             "or overflow")
+    # the splitters at the Daytona cell's shape, (8, 2^23) sorted keys
+    # and a 2^16-key sample, against keyspace.sampled_boundaries
+    split = sampled_splitters_case(w)
+    emit(phase="payload.key10.sampled", records=m, workers=w,
+         sample_fraction=2**-10, valid=card[3].tolist(), identical=True,
+         **split)
     launches = read_launches(wrappers)
     emit(phase="payload.key10.kernels", launches=launches,
          launched=sorted(k for k, c in launches.items() if c),

@@ -9,6 +9,9 @@ tensor-parallel placements (src/repro/launch/sharding.py):
   all_to_all(tiled=True) -> all_to_all_tiled: one all_to_all_single,
                             over every rank or along one mesh axis
   pmax(flag) > 0         -> any_across: one all_reduce(MAX) of an int32
+  all_gather(x, tiled)   -> gather_across: one all_gather over every
+                            rank, the parts in rank order (the sort's
+                            key samples, so every rank splits alike)
   pmax(x, axis)          -> pmax: one all_reduce(MAX) of a float, no
                             gradient (the vocab-parallel loss's shift)
   axis_index             -> worker_ids: the rank's global worker ids
@@ -159,15 +162,16 @@ def _all_reduce_sum(x: torch.Tensor, mesh, axis, what: str) -> torch.Tensor:
 
 
 def _all_gather_rows(x: torch.Tensor, mesh, axis, what: str) -> torch.Tensor:
-    """The slices of every rank along `axis`, concatenated on dim 0 in
-    index order."""
-    n = mesh.size_of(axis)
+    """The slices of every rank along `axis` (of every rank where axis
+    is None), concatenated on dim 0 in index order."""
+    n = mesh.world if axis is None else mesh.size_of(axis)
     x = x.contiguous()
     if x.is_meta:
         return x.repeat((n,) + (1,) * (x.dim() - 1))
+    group = mesh.group if axis is None else mesh.group_of(axis)
     parts = [torch.empty_like(x) for _ in range(n)]
     _logged(mesh, what, x.numel() * x.element_size(), x.is_cuda,
-            lambda: dist.all_gather(parts, x, group=mesh.group_of(axis)))
+            lambda: dist.all_gather(parts, x, group=group))
     return torch.cat(parts)
 
 
@@ -415,6 +419,13 @@ def any_across(flag, mesh=None) -> bool:
     return bool(f.item())
 
 
+def gather_across(x: torch.Tensor, mesh=None, *,
+                  what: str = "gather") -> torch.Tensor:
+    """Every rank's x (the same shape on each), concatenated on dim 0 in
+    rank order: x itself without a mesh."""
+    return x if mesh is None else _all_gather_rows(x, mesh, None, what)
+
+
 def worker_ids(mesh, num_workers: int, device) -> torch.Tensor:
     """int64 global ids of the workers this process holds: arange(W)
     without a mesh, the rank's [r*W/G, (r+1)*W/G) on one (axis_index)."""
@@ -426,5 +437,6 @@ def worker_ids(mesh, num_workers: int, device) -> torch.Tensor:
 
 
 __all__ = ["all_gather_seq", "all_to_all_tiled", "any_across",
-           "gather_rows", "pmax", "psum", "psum_grad", "reduce_scatter_seq",
-           "sharded_argmax", "split_rows", "worker_ids"]
+           "gather_across", "gather_rows", "pmax", "psum", "psum_grad",
+           "reduce_scatter_seq", "sharded_argmax", "split_rows",
+           "worker_ids"]

@@ -8,6 +8,9 @@ every tensor: all W of them without a mesh, the rank's W/G with a
 launch/mesh.RankMesh. One *shuffle round* is, for those workers at once:
 
   map      : bitonic sort of each worker's round records     (kernel)
+  sample   : with `sample_fraction` > 0, the worker boundaries are the
+             quantiles of an evenly spaced sample of the sorted keys,
+             gathered from every rank and sorted on the card (kernel)
   partition: offsets at the W-1 worker boundaries            (kernel)
   pack     : fixed-capacity lex-max-padded blocks, (W/G_src, W_dst, C)
   shuffle  : the tiled all_to_all to (W/G_dst, W_src, C)
@@ -25,7 +28,8 @@ place of its id, and the ids and rows are gathered by slot after it.
 With `key_bytes=10` the records carry the Sort Benchmark's whole
 10-byte key, bytes 4-9 in their first two payload words, and
 core/keytail.py orders the runs of equal leading words by those bytes
-after the merge.
+after the merge. The boundaries split the key word, whether equal or
+sampled, so a run of equal words never straddles two workers.
 
 Each stage runs inside an obs/device span, and the exchange and the
 key-tail stage count into obs/device's counters: its docstring is the
@@ -38,9 +42,10 @@ import math
 
 import torch
 
-from repro_torch.core import keytail, sortlib
+from repro_torch.core import keyspace, keytail, sortlib
 from repro_torch.core import payload as pay
-from repro_torch.core.collectives import all_to_all_tiled, any_across
+from repro_torch.core.collectives import (all_to_all_tiled, any_across,
+                                          gather_across)
 from repro_torch.core.keyspace import KeySpace
 from repro_torch.kernels import u32
 from repro_torch.obs import device as obs_device
@@ -78,7 +83,30 @@ class ShuffleConfig:
         return p
 
 
-def _exchange(keys, vals, *, cfg: ShuffleConfig, capacity: int, mesh=None):
+MIN_SAMPLES = 64  # keys each worker gives the splitters' sample, at least
+
+
+def sampled_worker_boundaries(sorted_keys, fraction: float, *,
+                              cfg: ShuffleConfig, mesh=None):
+    """Daytona splitters from the call's own keys, on the card: every
+    step-th key of each held worker's sorted run (step = round(1 /
+    fraction), or less where that leaves a worker of n keys fewer than
+    MIN_SAMPLES; from position min(step // 2, n - 1)), gathered from
+    every rank (so every rank splits alike), sorted by the bitonic
+    kernel and cut at its W-way quantiles (keyspace.quantiles). Returns
+    the (W-1,) u32 worker boundaries as a device tensor; nothing is read
+    by the host and no random number is drawn."""
+    n = sorted_keys.shape[-1]
+    step = max(1, min(round(1.0 / fraction), n // MIN_SAMPLES))
+    first = min(step // 2, n - 1)
+    sample = gather_across(sorted_keys[:, first::step].reshape(-1), mesh,
+                           what="sample")
+    srt, _ = sortlib.sort_records(sample, sample, impl=cfg.impl)
+    return keyspace.quantiles(srt, cfg.num_workers)
+
+
+def _exchange(keys, vals, *, cfg: ShuffleConfig, capacity: int, mesh=None,
+              sample_fraction: float = 0.0):
     """Map, partition and all_to_all of one round for the held workers.
 
     keys/vals: (Wl, n) u32, row w = local worker w's records (Wl = W
@@ -86,16 +114,23 @@ def _exchange(keys, vals, *, cfg: ShuffleConfig, capacity: int, mesh=None):
     overflow): bv (Wl_src, W_dst, C) the sent blocks' vals; rk/rv
     (Wl_dst, W_src, C) the received blocks; rcounts (Wl_dst, W_src)
     int32 records received from each source worker; overflow a bool
-    tensor of this process's blocks alone.
+    tensor of this process's blocks alone. `sample_fraction` > 0 splits
+    at sampled boundaries (sampled_worker_boundaries), 0 at the
+    configuration's.
     """
     ks = cfg.keyspace
     wl, n = keys.shape
     # --- map: sort the local partitions (paper §2.3 step 1) ---
     with span("sort.map"):
         sk, sv = sortlib.sort_records(keys, vals, impl=cfg.impl)
+    if sample_fraction:
+        with span("sort.sample"):
+            wb = sampled_worker_boundaries(sk, sample_fraction, cfg=cfg,
+                                           mesh=mesh)
     # --- partition at worker boundaries (paper §2.2) ---
     with span("sort.partition"):
-        wb = ks.worker_boundaries(keys.device)  # (W-1,)
+        if not sample_fraction:
+            wb = ks.worker_boundaries(keys.device)  # (W-1,)
         starts, counts = sortlib.partition_sorted(sk, wb, impl=cfg.impl)
     with span("sort.pack"):
         bk, bv, overflow = sortlib.gather_range_blocks(sk, sv, starts,
@@ -192,7 +227,8 @@ PAYLOAD_MODES = ("through", "late")
 
 
 def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
-                        mode: str, key_bytes: int, mesh=None):
+                        mode: str, key_bytes: int, mesh=None,
+                        sample_fraction: float = 0.0):
     """Whole-record sort for the held workers: headers through the merge,
     payload rows by `mode` ("through" = paper-faithful, "late" =
     deferred fetch). keys/ids (Wl, n) u32, payload (Wl, n, pw) u32.
@@ -206,12 +242,14 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
     cross ranks (`send_rows`, before the merge) and where the gather
     reads them (`gather_by_slot`). The late mode merges (key, id). With
     key_bytes 10 the key-tail stage then orders the runs of equal key
-    words by key bytes 4-9 (core/keytail.py)."""
+    words by key bytes 4-9 (core/keytail.py), in a buffer sized by
+    keytail.stage_capacity."""
     wl, n = keys.shape
     w = cfg.num_workers
     capacity = cfg.block_capacity(n)
-    bv, rk, rv, rcounts, overflow = _exchange(keys, ids, cfg=cfg,
-                                              capacity=capacity, mesh=mesh)
+    bv, rk, rv, rcounts, overflow = _exchange(
+        keys, ids, cfg=cfg, capacity=capacity, mesh=mesh,
+        sample_fraction=sample_fraction)
     if mode == "through":
         rows = pay.send_rows(bv, payload, capacity=capacity, mesh=mesh)
         with span("payload.join"):
@@ -230,11 +268,15 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
             capacity=cfg.block_capacity(mv.shape[-1]), impl=cfg.impl,
             mesh=mesh)
     valid = rcounts.sum(dim=-1).to(torch.int32)
+    if sample_fraction:
+        obs_device.device_counts.add("exchange.peak_worker_records",
+                                     valid.max().to(torch.int64))
     if key_bytes == 10:
         with span("sort.key_tail"):
             tied, tail_overflow = keytail.order_key_tails(
-                mk, mv, pout, valid, keytail.pair_capacity(
-                    n, w, wl, mk.shape[-1], cfg.capacity_factor))
+                mk, mv, pout, valid, keytail.stage_capacity(
+                    n, w, wl, mk.shape[-1], cfg.capacity_factor,
+                    sampled=bool(sample_fraction)))
         obs_device.device_counts.add("key_tail.records", tied)
         overflow = overflow | tail_overflow
     with span("sort.overflow_check"):
@@ -247,7 +289,8 @@ def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
                              cfg: ShuffleConfig | None = None,
                              impl: str = "kernel",
                              capacity_factor: float = 1.5, device="cuda",
-                             mesh=None, key_bytes: int = 4):
+                             mesh=None, key_bytes: int = 4,
+                             sample_fraction: float = 0.0):
     """Sort whole records: (key, global id, payload row).
 
     keys/ids: (N,) uint32 (numpy or u32 tensors) of the held workers, as
@@ -268,6 +311,15 @@ def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
     payload[i, 1] bytes 8-9 (core/keytail.py). A call with more
     neighbouring pairs of equal key words than the stage holds
     (core/keytail.pair_capacity) sets `overflow`.
+
+    sample_fraction 0 splits the key word into W equal ranges (or at
+    `cfg.boundaries`). A fraction f in (0, 1] samples the splitters on
+    the card from every 1/f-th key of the call's own sorted runs (at
+    least MIN_SAMPLES keys of each worker), the Daytona category's
+    general-purpose sort (sampled_worker_boundaries);
+    the key-tail stage then holds every tie of the call, and the count
+    `exchange.peak_worker_records` (obs/device.device_counts) adds the
+    most records any held worker received.
     """
     if mode not in PAYLOAD_MODES:
         raise ValueError(f"unknown payload mode {mode!r}: must be one of "
@@ -275,9 +327,15 @@ def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
     if key_bytes not in keytail.KEY_BYTES:
         raise ValueError(f"key_bytes={key_bytes!r}: must be one of "
                          f"{keytail.KEY_BYTES}")
+    if not 0.0 <= sample_fraction <= 1.0:
+        raise ValueError(f"sample_fraction={sample_fraction!r}: must lie "
+                         "in [0, 1]")
     w = num_workers
     wl, dev = held_workers(w, mesh, device)
     cfg = _config(w, cfg, impl, capacity_factor)
+    if sample_fraction and cfg.boundaries is not None:
+        raise ValueError("sample_fraction > 0 samples the boundaries; "
+                         "cfg.boundaries gives them")
     with span("exoshuffle.call"):
         keys, ids = u32.as_tensor(keys, dev), u32.as_tensor(ids, dev)
         payload = u32.as_tensor(payload, dev)
@@ -290,7 +348,7 @@ def distributed_sort_payload(keys, ids, payload, *, num_workers: int,
         mk, mv, pout, valid, ovf = _sort_shard_payload(
             keys.reshape(wl, n), ids.reshape(wl, n),
             payload.reshape(wl, n, pw), cfg=cfg, mode=mode,
-            key_bytes=key_bytes, mesh=mesh)
+            key_bytes=key_bytes, mesh=mesh, sample_fraction=sample_fraction)
     return mk.reshape(-1), mv.reshape(-1), pout.reshape(-1, pw), valid, ovf
 
 

@@ -8,7 +8,9 @@ R equal reducer ranges, grouped R1 = R/W per worker:
 
 Boundaries are *internal* (R-1 / W-1 values): the count below the last
 (2^32) boundary is always n, so it is implicit. `sampled_boundaries` is
-the Daytona-style fallback for skewed data. Boundary vectors are u32
+the Daytona-style fallback for skewed data; `quantiles` is its rule,
+which the in-memory sort applies on the card to a sample of each call's
+keys (core/exoshuffle, `sample_fraction`). Boundary vectors are u32
 tensors (int32 bit storage, see kernels/u32.py) on the `device` asked
 for; routing runs on the keys' device.
 """
@@ -122,12 +124,20 @@ def sampled_boundaries(sample_keys: torch.Tensor, parts: int) -> torch.Tensor:
     empty sample is not.
     """
     srt, _ = torch.sort(u32.widen(sample_keys.reshape(-1)))
-    n = srt.shape[0]
+    return u32.narrow(quantiles(srt, parts))
+
+
+def quantiles(sorted_sample: torch.Tensor, parts: int) -> torch.Tensor:
+    """The `parts`-way splitters of an ascending sample: entries
+    floor(j * n / parts) for j = 1 .. parts-1, gathered on the sample's
+    device (no host read). Any dtype; u32 bits sorted as unsigned give
+    u32 splitters."""
+    n = sorted_sample.shape[0]
     if n == 0:
         raise ValueError(
             f"sample_keys={n} keys: need at least one sampled key to "
             "estimate splitters")
     if parts < 1:
         raise ValueError(f"parts={parts}: must be >= 1")
-    idx = (torch.arange(1, parts, device=srt.device) * n) // parts
-    return u32.narrow(srt[idx])
+    idx = (torch.arange(1, parts, device=sorted_sample.device) * n) // parts
+    return sorted_sample[idx]

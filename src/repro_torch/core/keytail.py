@@ -18,11 +18,16 @@ reorders only the runs of equal leading words, by (key bytes 4-9, id).
 A run never straddles two workers, because the workers' key ranges split
 the leading 32 bits.
 
-The stage adds no wait for the host: the neighbouring pairs of equal
-words are gathered into a buffer of a fixed capacity (`pair_capacity`,
-worked out from the shapes the way the exchange's block capacity is),
-and pairs that do not fit set the call's overflow flag, as an
-overflowing exchange block does.
+Under the workers' equal ranges the stage adds no wait for the host:
+the neighbouring pairs of equal words are gathered into a buffer of a
+fixed capacity (`pair_capacity`, worked out from the shapes the way the
+exchange's block capacity is), and pairs that do not fit set the call's
+overflow flag, as an overflowing exchange block does. A sort that
+samples its splitters is told nothing of the key distribution, and
+skewed keys tie far beyond the uniform mean (two thirds of the records
+under CloudSort's Daytona skew): there the buffer is sized to the
+call's own count of pairs, read once a call, and never overflows
+(`stage_capacity` is the rule).
 """
 from __future__ import annotations
 
@@ -52,7 +57,20 @@ def pair_capacity(records_per_worker: int, num_workers: int, held: int,
     return min(cap, held * (int(slots) - 1))
 
 
-def order_key_tails(keys, ids, rows, valid, capacity: int):
+def stage_capacity(records_per_worker: int, num_workers: int, held: int,
+                   slots: int, capacity_factor: float, *,
+                   sampled: bool) -> int | None:
+    """The stage's buffer for one call: `pair_capacity` under the
+    workers' equal ranges, whose ties the uniform mean bounds; None
+    (every pair of the call, counted once a call) under sampled
+    splitters, which are told nothing of the key distribution."""
+    if sampled:
+        return None
+    return pair_capacity(records_per_worker, num_workers, held, slots,
+                         capacity_factor)
+
+
+def order_key_tails(keys, ids, rows, valid, capacity: int | None):
     """Reorder each worker's runs of equal key words by the rest of the
     key, in place.
 
@@ -63,7 +81,9 @@ def order_key_tails(keys, ids, rows, valid, capacity: int):
     (key bytes 0-9, id) order; keys are unchanged (a run shares its
     word). Returns (tied, overflow), device tensors: the records found in
     runs (int64), and whether more than `capacity` neighbouring pairs
-    share a word, in which case the order is unspecified.
+    share a word, in which case the order is unspecified. `capacity`
+    None holds every pair: the pairs are counted first, which waits for
+    the device once.
     """
     wl, m = keys.shape
     dev = keys.device
@@ -79,6 +99,8 @@ def order_key_tails(keys, ids, rows, valid, capacity: int):
     torch.eq(flat[1:], flat[:-1], out=pair.view(-1)[:-1])
     pair &= torch.arange(1, m + 1, dtype=torch.int32, device=dev) < \
         valid.clamp(max=m)[:, None]
+    if capacity is None:
+        capacity = int(pair.sum())
     # the first capacity + 1 pairs, ascending; -1 past the last
     at = torch.nonzero_static(pair.view(-1), size=capacity + 1,
                               fill_value=-1)[:, 0]

@@ -21,7 +21,12 @@ the through mode's rows on a rank mesh, core/payload.py:
   exoshuffle.call      distributed_sort, distributed_sort_payload: the
                        whole call; every span below nests in it
   sort.map             _exchange: bitonic sort of each worker's records
-  sort.partition       _exchange: worker boundaries, the partition kernel
+  sort.sample          _exchange, with sample_fraction > 0 only: the
+                       splitters sampled from the sorted keys, gathered
+                       across ranks, sorted and cut at their quantiles
+                       (sampled_worker_boundaries)
+  sort.partition       _exchange: worker boundaries (unless sampled), the
+                       partition kernel
   sort.pack            _exchange: header block gathers, pads, overflow flag
   sort.exchange        _exchange: the key, id and count exchanges (a
                        transpose copy without a mesh)
@@ -54,7 +59,11 @@ carry a record, the rest pads. In `device_counts`: `key_tail.records`,
 counted in `_sort_shard_payload` with key_bytes=10, the records the
 key-tail stage found in runs of equal key words and ordered; over
 `exchange.records`, the share of records whose order needed the key's
-bytes 4-9.
+bytes 4-9. `exchange.peak_worker_records`, counted in
+`_sort_shard_payload` with sample_fraction > 0, the most records that
+any held worker received in the call (int64); times W over
+`exchange.records`, how far the sampled splitters leave the busiest
+worker above the mean.
 
 To take a trace of a sort:
 

@@ -28,7 +28,9 @@ def key_bytes(keys: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
 
 def sort_records(keys, ids, payload):
     """(keys, ids, payload) in the rules' order: by key bytes 0-9, then
-    by id as an unsigned 32-bit number."""
+    by id as an unsigned 32-bit number. The whole order, with no split:
+    a sort at splitters of its own (`sample_fraction`) must give it as
+    its workers' valid prefixes, concatenated in worker order."""
     order = torch.sort(ids.to(torch.int64) & 0xFFFFFFFF, stable=True).indices
     kb = key_bytes(keys, payload)
     for j in reversed(range(KEY_BYTES)):

@@ -80,9 +80,11 @@ def sorts(rank, world, store_path, cases):
     return out
 
 
-def key10_sort(rank, world, store_path, keys, ids, payload):
+def key10_sort(rank, world, store_path, keys, ids, payload,
+               sample_fraction=0.0):
     """distributed_sort_payload with key_bytes=10 on this rank's shard:
-    the key-tail stage on the rank's workers. Returns the outputs as
+    the key-tail stage on the rank's workers, at splitters sampled from
+    every rank's keys where `sample_fraction` > 0. Returns the outputs as
     numpy and the overflow flag."""
     from repro_torch.core.exoshuffle import distributed_sort_payload
 
@@ -90,7 +92,7 @@ def key10_sort(rank, world, store_path, keys, ids, payload):
         lo, hi = mesh.share(keys.shape[0])
         res = distributed_sort_payload(
             keys[lo:hi], ids[lo:hi], payload[lo:hi], num_workers=W,
-            mesh=mesh, key_bytes=10)
+            mesh=mesh, key_bytes=10, sample_fraction=sample_fraction)
     return tuple(t.numpy() if isinstance(t, torch.Tensor) else t
                  for t in res)
 
