@@ -9,7 +9,8 @@ Run from the repo root on a machine with one H100. It
      limit from nvidia-smi) and a probe of which torch dtype round-trips
      uint32 bits on the card;
   2. builds the CUDA kernels from src/repro_torch/kernels/csrc/ (the
-     four sort kernels and the through mode's slot gather);
+     four sort kernels, the through mode's slot gather and the key-tail
+     stage's kernel);
   3. holds each kernel bit-identical to its plain torch version at the
      main path's shapes and on small adversarial cases, and times the
      kernel, the plain version and one PyTorch library call that
@@ -37,14 +38,17 @@ Run from the repo root on a machine with one H100. It
      holds both modes on the card against the CPU's plain versions at
      2^20 records, and `payload.key10.identity` the whole 10-byte key
      (key_bytes=10) the same way (each requires the slot gather to
-     have launched), then once at splitters sampled on the card from
-     skewed keys (`payload.key10.sampled`, sample_fraction 2^-10, with
-     the splitters held against keyspace.sampled_boundaries at the
-     Daytona cell's (8, 2^23) keys), with its kernels held and the
-     key-tail stage run alone under the sync debug mode
-     (`payload.key10.nosync`); `payload.split` splits one call of each
-     mode at 2^24 records by kernel (torch.profiler), beside the map
-     sort's device ms on the phase's own rows; `payload.full` runs 5
+     have launched, the second also the key-tail kernel), then once at
+     splitters sampled on the card from skewed keys
+     (`payload.key10.sampled`, sample_fraction 2^-10, with the
+     splitters held against keyspace.sampled_boundaries at the Daytona
+     cell's (8, 2^23) keys), with its kernels held, the key-tail kernel
+     also at the edges of its classes of run length
+     (`payload.key10.tail_holds`), and the key-tail stage run alone
+     under the sync debug mode (`payload.key10.nosync`); `payload.split`
+     splits one call of each mode at 2^24 records by kernel
+     (torch.profiler), beside the map sort's device ms on the phase's own
+     rows; `payload.full` runs 5
      calls of each at 2^24 records (1.68 GB, one round, blocks of
      2^19): the median and
      range of their seconds, peak device memory and valsort of the last
@@ -403,7 +407,8 @@ def kernel_split(fn, *args):
 
 #: Name prefixes of this port's kernels in a profiler trace.
 OUR_KERNELS = ("bitonic_tile", "bitonic_global", "partition_count",
-               "merge_tiles", "kway_rank_scatter", "gather_slot_rows")
+               "merge_tiles", "kway_rank_scatter", "gather_slot_rows",
+               "key_tail")
 
 
 def device_split(fn, *args):
@@ -643,6 +648,226 @@ def slot_gather_case(wl, w_src, cap, n, pw, fill, from_input, gen):
                          (w_src, n, pw) if from_input else (wl * m, pw),
                          generator=gen, dtype=torch.int32, device=dev)
     return recv, rows, u32.narrow(slots), rc.to(torch.int32)
+
+
+#: (name, Wl, M, pw, run lengths, tie share, tail alphabet, capacity) of
+#: the key-tail kernel's holds in `payload.key10.identity`. Each worker's
+#: valid prefix (worker d's M - d * M/64: worker 0 full, the others with
+#: pads) holds the listed runs, the first at its first slot and the last
+#: ending at its last valid one, amid runs of equal words where a random
+#: share `tie` of positions repeats its neighbour's word. A tail alphabet
+#: k > 0 draws key bytes 4-7 and 8-9 from k values each, so the position
+#: decides among equal tails. Capacity: None (sampled splitters), "fits"
+#: (exactly the pairs) or "over" (one pair fewer: overflow).
+KEY_TAIL_HOLDS = (
+    ("classes", 4, 1 << 16, 23, (32, 33, 2048, 2049, 2, 31, 64, 1000),
+     0.5, 0, None),
+    ("keys_a_thread", 2, 1 << 16, 23, (4095, 4096, 8191, 8192, 257), 0.3, 0,
+     None),
+    ("block_limit", 2, 1 << 16, 23, (16384, 16385), 0.3, 0, None),
+    ("stage_edge", 2, 1 << 16, 23, (2371, 2372, 4000), 0.3, 0, None),
+    ("past_65536", 1, 1 << 18, 8, (65537,), 0.3, 0, None),
+    ("whole_worker", 1, 1 << 24, 23, (1 << 24,), 0.0, 0, None),
+    ("equal_tails", 4, 1 << 15, 23, (40, 300, 5000), 0.5, 3, None),
+    ("pw2", 3, 1 << 15, 2, (33, 257, 17000), 0.5, 0, None),
+    ("pw8", 3, 1 << 15, 8, (33, 257, 17000), 0.5, 4, None),
+    ("pads_word", 4, 1 << 12, 23, (50,), 0.5, 0, None),
+    ("capacity_fits", 8, 1 << 15, 23, (100, 2000), 0.4, 0, "fits"),
+    ("capacity_over", 8, 1 << 15, 23, (100, 2000), 0.4, 0, "over"),
+)
+
+
+def key_tail_case(wl, m, pw, lengths, tie, tails, gen, pads_word=False):
+    """Inputs of core/keytail.order_key_tails on the card: (keys, ids,
+    rows, valid) as KEY_TAIL_HOLDS describes them. Words rise by 1 to 63
+    from one run to the next (pads 0xFFFFFFFF past the valid prefix);
+    with pads_word each worker's last run has the pads' word."""
+    from repro_torch.kernels import u32
+
+    dev = torch.device(DEVICE)
+    valid = [m - d * (m // 64) for d in range(wl)]
+    cont = torch.rand((wl, m), generator=gen, device=dev) < tie
+    for d, v in enumerate(valid):
+        at = 0
+        for i, length in enumerate(lengths):
+            start = v - length if i == len(lengths) - 1 else at
+            cont[d, start] = False
+            cont[d, start + 1:start + length] = True
+            if start + length < m:
+                cont[d, start + length] = False
+            at = start + length + 7
+    step = torch.randint(1, 64, (wl, m), generator=gen, device=dev)
+    step = torch.where(cont, 0, step)
+    step[:, 0] = torch.randint(0, 1 << 20, (wl,), generator=gen, device=dev)
+    keys = step.cumsum(-1)
+    cols = torch.arange(m, device=dev)
+    vt = torch.tensor(valid, device=dev)
+    if pads_word:
+        keys += 0xFFFFFFFF - keys.gather(1, vt[:, None] - 1)
+    keys = torch.where(cols < vt[:, None], keys, 0xFFFFFFFF)
+    ids = torch.randint(-(1 << 31), 1 << 31, (wl, m), generator=gen,
+                        dtype=torch.int32, device=dev)
+    rows = torch.randint(-(1 << 31), 1 << 31, (wl, m, pw), generator=gen,
+                         dtype=torch.int32, device=dev)
+    if tails:
+        t0 = torch.randint(0, tails, (wl, m), generator=gen, device=dev)
+        t1 = torch.randint(0, tails, (wl, m), generator=gen, device=dev)
+        rows[..., 0] = u32.narrow(t0 * 0x01000193)
+        rows[..., 1] = u32.narrow((t1 << 16)
+                                  | (u32.widen(rows[..., 1]) & 0xFFFF))
+    return (u32.narrow(keys), ids, rows,
+            torch.tensor(valid, dtype=torch.int32, device=dev))
+
+
+def hold_key_tail(label, keys, ids, rows, valid, capacity):
+    """The key-tail kernel against its plain version on the card, on
+    copies of ids and rows: ids, rows, tied records and overflow
+    bit-identical, and the kernel's count of moved records the valid
+    places whose id or row changed (under overflow the flag alone: the
+    order and the kernel's counts are then unspecified). capacity None,
+    "fits" or "over" (see KEY_TAIL_HOLDS), or a number."""
+    from repro_torch.core import keytail
+    from repro_torch.kernels import key_tail
+
+    m = keys.shape[-1]
+    if capacity in ("fits", "over"):
+        eq = keys[:, 1:] == keys[:, :-1]
+        eq &= torch.arange(1, m, device=keys.device) < valid[:, None]
+        capacity = int(eq.sum()) - (capacity == "over")
+    got = (ids.clone(), rows.clone())
+    want = (ids.clone(), rows.clone())
+    tied, over, moved = key_tail.order_key_tails(keys, *got, valid,
+                                                 capacity)
+    ptied, pover = keytail.order_key_tails_plain(keys, *want, valid,
+                                                 capacity)
+    if bool(over) != bool(pover):
+        raise AssertionError(f"{label}: overflow {bool(over)}, plain "
+                             f"{bool(pover)}")
+    if not bool(pover):
+        check_equal(label, got, want)
+        if int(tied) != int(ptied):
+            raise AssertionError(f"{label}: {int(tied)} tied records, plain "
+                                 f"{int(ptied)}")
+        changed = (got[0] != ids) | (got[1] != rows).any(-1)
+        changed &= torch.arange(m, device=keys.device) < valid[:, None]
+        if int(moved) != int(changed.sum()):
+            raise AssertionError(f"{label}: {int(moved)} records moved, "
+                                 f"{int(changed.sum())} changed places")
+    return {"tied": int(ptied), "overflow": bool(pover),
+            "moved": int(moved), "capacity": capacity}
+
+
+def key_tail_skew_case(wl, m, pw, gen):
+    """The key-tail stage's input as daytona10.resident's merge leaves
+    it: wl * m / 2 records whose key word is a random word shifted right
+    by 0 to 23 bits (the cell's skew: two thirds of the records tie, in
+    runs of up to about 11,000), sorted and cut into wl workers at word
+    boundaries near equal counts, pads past each; random ids and rows."""
+    from repro_torch.kernels import u32
+
+    dev = torch.device(DEVICE)
+    n = wl * m // 2
+    words = torch.randint(0, 1 << 32, (n,), generator=gen, device=dev)
+    words >>= torch.randint(0, 24, (n,), generator=gen, device=dev)
+    words = words.sort().values
+    at = torch.arange(1, wl, device=dev) * (n // wl)
+    bounds = [0] + torch.searchsorted(words, words[at]).tolist() + [n]
+    keys = torch.full((wl, m), 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    for d in range(wl):
+        keys[d, :bounds[d + 1] - bounds[d]] = words[bounds[d]:bounds[d + 1]]
+    del words
+    valid = torch.tensor([bounds[d + 1] - bounds[d] for d in range(wl)],
+                         dtype=torch.int32, device=dev)
+    ids = torch.randint(-(1 << 31), 1 << 31, (wl, m), generator=gen,
+                        dtype=torch.int32, device=dev)
+    rows = torch.randint(-(1 << 31), 1 << 31, (wl, m, pw), generator=gen,
+                         dtype=torch.int32, device=dev)
+    return u32.narrow(keys), ids, rows, valid
+
+
+def inplace_ms(fn, reset, reps, host_s):
+    """Device ms of each of `reps` calls of an in-place fn(), each between
+    its own pair of events after reset() has restored its inputs (outside
+    the events); a sleep kernel ahead of the first event holds the card
+    while the host enqueues (~host_s)."""
+    out = []
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (1.5 * host_s + 1e-3)))
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return out
+
+
+def record_key_tail(rows, rate, csrc, gen):
+    """The key-tail kernel at the resident cells' shape (8 workers of 2^24
+    merged slots, 23 payload words) on daytona10.resident's run lengths
+    (key_tail_skew_case): held bit-identical to its plain version under
+    sampled splitters' None, then timed in place, each call on inputs
+    restored outside its events, under None (the cell's path, with its
+    host read) and under a capacity of exactly the call's pairs (no host
+    wait; host_us). The plain version, the aten composition the kernel
+    replaced, is both the plain and the library column. The bound is the
+    least bytes, 4 V + 8 T + 8 pw X for V valid, T tied and X moved
+    records (kernels/csrc/key_tail.cu), at the card's bandwidth."""
+    from repro_torch.core import keytail
+    from repro_torch.kernels import key_tail
+
+    wl, m, pw = NUM_WORKERS, 1 << 24, PAYLOAD_WORDS
+    keys, ids0, rows0, valid = key_tail_skew_case(wl, m, pw, gen)
+    held = hold_key_tail("order_key_tails (8, 2^24, 23) skew", keys, ids0,
+                         rows0, valid, None)
+    torch.cuda.empty_cache()
+    pairs = keys[:, 1:] == keys[:, :-1]
+    pairs &= torch.arange(1, m, device=keys.device) < valid[:, None]
+    pairs = int(pairs.sum())
+    ids, work = ids0.clone(), rows0.clone()
+
+    def reset():
+        ids.copy_(ids0)
+        work.copy_(rows0)
+
+    def kern(capacity):
+        return lambda: key_tail.order_key_tails(keys, ids, work, valid,
+                                                capacity)
+
+    host = []
+    for _ in range(5):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern(pairs)()
+        host.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    host_us_fixed = statistics.median(host)
+    sampled = inplace_ms(kern(None), reset, 5, host_us_fixed * 1e-6)
+    fixed = inplace_ms(kern(pairs), reset, 5, host_us_fixed * 1e-6)
+    plain = inplace_ms(lambda: keytail.order_key_tails_plain(
+        keys, ids, work, valid, None), reset, 2, 0.002)
+    v = int(valid.sum())
+    nbytes = 4 * v + 8 * held["tied"] + 8 * pw * held["moved"]
+    row = dict(name="order_key_tails", route="cuda",
+               source=csrc + "key_tail.cu",
+               replaces="none (the reference has no key-tail stage)",
+               shape=[wl * m, pw], launches=0, max_abs_err=0,
+               ms=statistics.mean(sampled), plain_ms=statistics.mean(plain),
+               bound_ms=nbytes / rate * 1e3, bound_by="bytes",
+               library_ms=statistics.mean(plain), l2="cold",
+               host_us=host_us_fixed)
+    emit(phase="kernel", turns_ms={"kernel": sampled, "fixed": fixed,
+                                   "plain": plain},
+         ms_fixed_capacity=statistics.mean(fixed), capacity=pairs,
+         valid=v, tied=held["tied"], moved=held["moved"], bytes=nbytes,
+         **row)
+    rows.append(row)
+    del keys, ids0, rows0, valid, ids, work
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(plan):
@@ -939,6 +1164,7 @@ def phase_kernels(plan):
            pad_slots=int((args[2] == -1).sum()))
     del args
     torch.cuda.empty_cache()
+    record_key_tail(rows, rate, csrc, gen)
     # the launch floor: an empty kernel, launched through the same ctypes
     # path, timed like the kernels (back-to-back calls between events)
     noop = _build.function("noop")
@@ -1150,6 +1376,15 @@ def hold_shapes(phase, wrappers, extra=(), mesh_workers=NUM_WORKERS):
                         wrappers["gather_slot_rows"](*args, from_input=fi),
                         gather_slot_rows_plain(*args, from_input=fi))
             del args
+    if "order_key_tails" in wrappers:
+        # S = Wl * M slots of NUM_WORKERS workers; runs of every class
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for s_slots, pw in sorted(shapes["order_key_tails"]):
+            m = s_slots // NUM_WORKERS
+            case = key_tail_case(NUM_WORKERS, m, pw,
+                                 (33, 300) if m >= 1024 else (), 0.5, 0, gen)
+            hold_key_tail(label("key tail", (s_slots, pw)), *case, None)
+            del case
     torch.cuda.empty_cache()
     held = {n: [list(sh) for sh in sorted(s)] for n, s in shapes.items()}
     emit(phase=f"{phase}.hold", shapes=held,
@@ -1259,9 +1494,12 @@ def phase_payload_key10_identity(wrappers):
     overflow; and sampled_splitters_case at the Daytona cell's shape.
     The phase names the kernels the wide path launches and holds each
     bit-identical to its plain version at every shape it launched at;
-    the key-tail stage launches none of its own. Then the stage alone on
-    the card under torch.cuda.set_sync_debug_mode("error"): it makes the
-    host wait for nothing (`payload.key10.nosync`)."""
+    the key-tail stage's own kernel (kernels/key_tail.py) among them,
+    which is then held at the edges of its classes of run length
+    (KEY_TAIL_HOLDS, `payload.key10.tail_holds`). Then the stage alone
+    on the card under torch.cuda.set_sync_debug_mode("error"): under a
+    fixed capacity it makes the host wait for nothing
+    (`payload.key10.nosync`)."""
     from repro_torch.core import keytail
     from repro_torch.core.exoshuffle import distributed_sort_payload
     from repro_torch.data import gensort
@@ -1339,11 +1577,48 @@ def phase_payload_key10_identity(wrappers):
     launches = read_launches(wrappers)
     emit(phase="payload.key10.kernels", launches=launches,
          launched=sorted(k for k, c in launches.items() if c),
-         new_kernels=[])
+         new_kernels=["order_key_tails"])
     require_launched("payload.key10.identity", launches,
                      ("bitonic_sort_blocks", "partition_offsets_blocks",
-                      "merge_sorted_pairs", "gather_slot_rows"))
+                      "merge_sorted_pairs", "gather_slot_rows",
+                      "order_key_tails"))
     hold_shapes("payload.key10", wrappers)
+    # the key-tail kernel at the edges of its classes (KEY_TAIL_HOLDS)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    tails = {}
+    for name, wl, m, pw, lengths, tie, alphabet, cap in KEY_TAIL_HOLDS:
+        case = key_tail_case(wl, m, pw, lengths, tie, alphabet, gen,
+                             pads_word=name == "pads_word")
+        tails[name] = hold_key_tail(f"payload.key10.tail {name}", *case,
+                                    cap)
+        del case
+        torch.cuda.empty_cache()
+    # the lists and scratch that rt_key_tail_sizes gives hold any runs
+    # with at most `capacity` pairs (a mid run has at least 32 pairs, a
+    # large run 512; at most 2 * capacity records tie, each taking at
+    # most pw + 7 scratch words and 16 a run); pw 2 to 111
+    from repro_torch.kernels import key_tail
+
+    slots, pw = 1 << 21, PAYLOAD_WORDS
+    for cap in (0, 31, 32, 511, 512, 786432, 1 << 30):
+        _, mid, large, words = key_tail.sizes(slots, pw, cap)
+        most, tied = min(cap, slots - 1), min(2 * cap, slots)
+        if mid < min(most // 32, slots // 33) + 1 \
+                or large < min(most // 512, slots // 513) + 1 \
+                or words < tied * (pw + 7) + 16:
+            raise AssertionError(f"key_tail.sizes at capacity {cap}: "
+                                 f"{mid}, {large}, {words}")
+    if key_tail.sizes(slots, pw, None)[3] is not None:
+        raise AssertionError("key_tail.sizes: scratch sized without one")
+    for bad in (1, 112):
+        try:
+            key_tail.sizes(slots, bad, None)
+        except ValueError:
+            continue
+        raise AssertionError(f"key_tail.sizes took pw {bad}")
+    emit(phase="payload.key10.tail_holds", cases=tails, identical=True,
+         seconds=time.perf_counter() - t0)
     # the stage alone: no host wait inside it
     dev = torch.device(DEVICE)
     sk, si, sp, vc, _ = distributed_sort_payload(
@@ -4043,7 +4318,10 @@ def run(log):
     # ---- 6. the payload modes (their through mode adds the slot gather) ----
     from repro_torch.kernels.slot_gather import gather_slot_rows
 
-    payload_wrappers = dict(wrappers, gather_slot_rows=gather_slot_rows)
+    from repro_torch.kernels.key_tail import order_key_tails
+
+    payload_wrappers = dict(wrappers, gather_slot_rows=gather_slot_rows,
+                            order_key_tails=order_key_tails)
     by_phase["payload.identity"] = timed(
         "payload.identity", phase_payload_identity, payload_wrappers)
     by_phase["payload.key10"] = timed("payload.key10.identity",

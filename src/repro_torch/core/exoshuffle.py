@@ -242,8 +242,8 @@ def _sort_shard_payload(keys, ids, payload, *, cfg: ShuffleConfig,
     cross ranks (`send_rows`, before the merge) and where the gather
     reads them (`gather_by_slot`). The late mode merges (key, id). With
     key_bytes 10 the key-tail stage then orders the runs of equal key
-    words by key bytes 4-9 (core/keytail.py), in a buffer sized by
-    keytail.stage_capacity."""
+    words by key bytes 4-9 (core/keytail.py), holding the pairs that
+    keytail.stage_capacity allows."""
     wl, n = keys.shape
     w = cfg.num_workers
     capacity = cfg.block_capacity(n)

@@ -18,16 +18,24 @@ reorders only the runs of equal leading words, by (key bytes 4-9, id).
 A run never straddles two workers, because the workers' key ranges split
 the leading 32 bits.
 
-Under the workers' equal ranges the stage adds no wait for the host:
-the neighbouring pairs of equal words are gathered into a buffer of a
-fixed capacity (`pair_capacity`, worked out from the shapes the way the
-exchange's block capacity is), and pairs that do not fit set the call's
-overflow flag, as an overflowing exchange block does. A sort that
+On the card the stage is one hand-written kernel (kernels/key_tail.py,
+csrc/key_tail.cu: three launches), which finds each run, orders it by
+its length's class and moves its ids and rows once. On the CPU it is the
+plain version, `order_key_tails_plain`: the neighbouring pairs of equal
+words gathered into a buffer, two stable sorts, index moves.
+
+Under the workers' equal ranges the stage adds no wait for the host: it
+holds at most a fixed capacity of neighbouring pairs of equal words
+(`pair_capacity`, worked out from the shapes the way the exchange's
+block capacity is), the plain version in a buffer of that size and the
+kernel in lists and scratch sized from it, and pairs past it set the
+call's overflow flag, as an overflowing exchange block does. A sort that
 samples its splitters is told nothing of the key distribution, and
 skewed keys tie far beyond the uniform mean (two thirds of the records
-under CloudSort's Daytona skew): there the buffer is sized to the
-call's own count of pairs, read once a call, and never overflows
-(`stage_capacity` is the rule).
+under CloudSort's Daytona skew): there the stage holds every pair and
+never overflows (`stage_capacity` is the rule). The plain version then
+counts the pairs and sizes its buffer to them, the kernel counts the
+scratch its longest runs need: one host read a call each.
 """
 from __future__ import annotations
 
@@ -35,7 +43,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import u32
+from repro_torch.kernels import key_tail, u32
+from repro_torch.obs import device as obs_device
 
 KEY_BYTES = (4, 10)  # the kernels' key word alone; the rules' whole key
 TAIL_WORDS = 2  # payload words that carry key bytes 4-9
@@ -82,9 +91,44 @@ def order_key_tails(keys, ids, rows, valid, capacity: int | None):
     word). Returns (tied, overflow), device tensors: the records found in
     runs (int64), and whether more than `capacity` neighbouring pairs
     share a word, in which case the order is unspecified. `capacity`
-    None holds every pair: the pairs are counted first, which waits for
-    the device once.
+    None holds every pair, which waits for the device once. All int32
+    storage and contiguous on one device, pw >= TAIL_WORDS (else raises).
+    CPU tensors take the plain version, CUDA tensors the kernel
+    (kernels/key_tail.py: pw up to what it takes; under overflow its
+    `tied` counts every run), which adds the records it moved to the
+    device count `key_tail.moved`.
     """
+    check(keys, ids, rows, valid)
+    if keys.device.type == "cpu":
+        return order_key_tails_plain(keys, ids, rows, valid, capacity)
+    tied, overflow, moved = key_tail.order_key_tails(keys, ids, rows, valid,
+                                                     capacity)
+    obs_device.device_counts.add("key_tail.moved", moved)
+    return tied, overflow
+
+
+def check(keys, ids, rows, valid) -> None:
+    """Raise unless keys/ids are (Wl, M) u32, rows (Wl, M, pw) with pw >=
+    TAIL_WORDS and valid (Wl,) int32, all contiguous on one device."""
+    u32.require_u32(keys, ids, rows, valid)
+    if keys.ndim != 2 or ids.shape != keys.shape:
+        raise ValueError(f"keys {tuple(keys.shape)}, ids {tuple(ids.shape)}: "
+                         "need equal (Wl, M)")
+    if rows.ndim != 3 or rows.shape[:2] != keys.shape \
+            or rows.shape[-1] < TAIL_WORDS:
+        raise ValueError(f"rows {tuple(rows.shape)}: need (Wl, M, pw) with "
+                         f"(Wl, M) = {tuple(keys.shape)} and pw >= "
+                         f"{TAIL_WORDS}")
+    if valid.shape != keys.shape[:1]:
+        raise ValueError(f"valid {tuple(valid.shape)}: need "
+                         f"({keys.shape[0]},)")
+
+
+def order_key_tails_plain(keys, ids, rows, valid, capacity: int | None):
+    """The plain torch version of `order_key_tails`: the neighbouring
+    pairs of equal words compacted into a buffer of `capacity` pairs
+    (counted first where None), ordered by (run, key bytes 4-7, key bytes
+    8-9, position) with two stable sorts, ids and rows moved by index."""
     wl, m = keys.shape
     dev = keys.device
     flat_ids = ids.view(-1)

@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: entry name -> (source csrc/<source>.cu, C symbol, argtypes); the last
-#: argument is the stream.
+#: argument is the stream, but for key_tail_sizes, which launches nothing.
 SIGNATURES = {
     "bitonic_sort": ("bitonic_sort", "rt_bitonic_sort",
                      [_P] * 5 + [_LL, _LL, _LL, _P, _I, _P]),
@@ -47,6 +47,11 @@ SIGNATURES = {
                    [_P] * 9 + [_LL] * 4 + [_P]),
     "slot_gather": ("slot_gather", "rt_gather_slot_rows",
                     [_P] * 6 + [_LL] * 5 + [_I, _P]),
+    "key_tail_find": ("key_tail", "rt_key_tail_find",
+                      [_P] * 7 + [_LL] * 5 + [_P]),
+    "key_tail_order": ("key_tail", "rt_key_tail_order",
+                       [_P] * 7 + [_LL] * 6 + [_P, _P, _LL, _I, _P]),
+    "key_tail_sizes": ("key_tail", "rt_key_tail_sizes", [_LL] * 3 + [_P]),
     "noop": ("kway_merge", "rt_noop", [_P]),
 }
 SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})

@@ -47,7 +47,10 @@ the through mode's rows on a rank mesh, core/payload.py:
                        on a mesh from the received blocks
   sort.key_tail        _sort_shard_payload with key_bytes=10: the runs of
                        equal key words found, their records ordered by
-                       key bytes 4-9 and moved (core/keytail.py)
+                       key bytes 4-9 and moved (core/keytail.py): on the
+                       card one memset and three launches of the key-tail
+                       kernel (kernels/csrc/key_tail.cu), and under sampled
+                       splitters one host read of its scratch size
   sort.overflow_check  around each any_across: the `.any()` and the
                        host's wait on it
 
@@ -59,7 +62,8 @@ carry a record, the rest pads. In `device_counts`: `key_tail.records`,
 counted in `_sort_shard_payload` with key_bytes=10, the records the
 key-tail stage found in runs of equal key words and ordered; over
 `exchange.records`, the share of records whose order needed the key's
-bytes 4-9. `exchange.peak_worker_records`, counted in
+bytes 4-9. `key_tail.moved`, counted in core/keytail.order_key_tails on
+the card, the records whose place the kernel changed. `exchange.peak_worker_records`, counted in
 `_sort_shard_payload` with sample_fraction > 0, the most records that
 any held worker received in the call (int64); times W over
 `exchange.records`, how far the sampled splitters leave the busiest
