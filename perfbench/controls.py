@@ -13,10 +13,16 @@ payload that follows each record, the output format) is kept.
 runs the cell's driver with its entry replaced by the control, on each
 seed at the cell's own size (one call in the window), and prints
 one JSON line a seed with the numbers compared beside their limits.
+Each driver names its cells' control, `CONTROL` (module.function): this
+module's `resident_sort` for the `resident` driver, `controls_key10`'s
+and `controls_skew10`'s for theirs. A cell over ranks runs its control
+through lib/ranks.py, on every rank in the program's place.
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import importlib
 import json
 import sys
 import time
@@ -28,7 +34,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from perfbench.lib import spec  # noqa: E402
+from perfbench.lib import ranks, spec  # noqa: E402
 from perfbench.reference import gen  # noqa: E402
 from perfbench.reference import sort as ref  # noqa: E402
 
@@ -69,16 +75,21 @@ def resident_sort(keys, ids, payload, *, num_workers: int, **_):
             valid, torch.tensor(False))
 
 
-CONTROLS = {"resident": resident_sort}
+def _in_place_of(control, _entry):
+    return control
 
 
 def run_control(cell, seed: int, *, device="cuda"):
-    """One run of `cell` with its entry replaced by the control; returns
-    the driver's Outcome."""
-    control = CONTROLS[cell.traffic["driver"]]
-    return spec.driver(cell.traffic).run(
-        cell, seed=seed, seconds=0.0, trace=False, t0=time.perf_counter(),
-        device=device, wrap=lambda _entry: control)
+    """One run of `cell` with its entry replaced by the control that its
+    driver names; returns the run's Outcome."""
+    drv = spec.driver(cell.traffic)
+    module, _, name = drv.CONTROL.rpartition(".")
+    control = getattr(importlib.import_module(module), name)
+    kw = dict(seed=seed, seconds=0.0, trace=False, t0=time.perf_counter(),
+              device=device, wrap=functools.partial(_in_place_of, control))
+    if cell.chips == 1:
+        return drv.run(cell, **kw)
+    return ranks.run(cell, drv.body, **kw)
 
 
 def main(argv=None) -> int:

@@ -13,8 +13,7 @@ call's output, drawn uniformly from the window's calls by the seed
 (a reservoir of one), is held and compared with the plain reference
 once the window has closed; the inputs are checked unchanged.
 
-A traced run then profiles `trace_calls` more calls, with the payload
-functions of `core/payload.py` inside named ranges and every kernel
+A traced run then profiles `trace_calls` more calls, with every kernel
 launch recorded with its shape.
 """
 from __future__ import annotations
@@ -30,8 +29,7 @@ from perfbench.lib.outcome import Check, Outcome, sync
 from perfbench.reference import gen
 from perfbench.reference import sort as ref
 
-PAYLOAD_FUNCTIONS = ("take_rows", "exchange_payload_blocks",
-                     "align_payload_to_merge")
+CONTROL = "perfbench.controls.resident_sort"  # controls.run_control's
 
 
 def entry():
@@ -81,8 +79,6 @@ def run(cell, *, seed: int, seconds: float, trace: bool, t0: float,
         records_per_call=n, trace=None, launches=[], trace_calls=0)
     dtrace = None
     if trace:
-        from repro_torch.core import payload as payload_module
-
         tc = int(tr["trace_calls"])
 
         def traced():
@@ -91,8 +87,7 @@ def run(cell, *, seed: int, seconds: float, trace: bool, t0: float,
                     sort(keys, ids, payload, **kw)
                 sync(device)
 
-        with hooks.launches() as log, hooks.ranges(
-                payload_module, PAYLOAD_FUNCTIONS, "payload"):
+        with hooks.launches() as log:
             _, dtrace = devtrace.capture(traced)
         readings.trace, readings.launches = dtrace, log
         readings.trace_calls = tc

@@ -31,6 +31,7 @@ from perfbench.reference import key10
 from perfbench.reference import sort as ref
 
 KEY_BYTES = 10
+CONTROL = "perfbench.controls_key10.resident_sort"  # controls.run_control's
 
 
 def run(cell, *, seed: int, seconds: float, trace: bool, t0: float,

@@ -34,6 +34,7 @@ from perfbench.lib.outcome import Check, Outcome, sync
 from perfbench.reference import skew10
 
 KEY_BYTES = 10
+CONTROL = "perfbench.controls_skew10.resident_sort"  # controls.run_control's
 
 
 def run(cell, *, seed: int, seconds: float, trace: bool, t0: float,

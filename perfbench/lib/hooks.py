@@ -1,19 +1,13 @@
 """What a traced run adds around the program, from the benchmark's side.
 
-Both hooks wrap names of the port's modules for the length of a `with`
-block and put them back after it; untraced runs never install them.
-
-  launches()           every kernel launch the port counts
-                       (`kernels/_build.count_launch`), with its shape;
-  ranges(module, ...)  a `torch.profiler.record_function` range named
-                       `perfbench.<label>.<function>` around each call of
-                       the named functions of `module`, so device time can
-                       be split by the layer that launched it.
+`launches()` logs every kernel launch the port counts
+(`kernels/_build.count_launch`), with its shape: it wraps that name of
+the port's module for the length of a `with` block and puts it back
+after it; untraced runs never install it.
 """
 from __future__ import annotations
 
 import contextlib
-import functools
 
 
 @contextlib.contextmanager
@@ -34,28 +28,6 @@ def launches():
         yield log
     finally:
         _build.count_launch = orig
-
-
-@contextlib.contextmanager
-def ranges(module, names, label: str):
-    import torch
-
-    saved = {n: getattr(module, n) for n in names}
-
-    def wrap(name, fn):
-        @functools.wraps(fn)
-        def inner(*args, **kwargs):
-            with torch.profiler.record_function(f"perfbench.{label}.{name}"):
-                return fn(*args, **kwargs)
-        return inner
-
-    for n, fn in saved.items():
-        setattr(module, n, wrap(n, fn))
-    try:
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(module, n, fn)
 
 
 def launched(log, counter: str):

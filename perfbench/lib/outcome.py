@@ -32,6 +32,11 @@ class Outcome:
     trace: object | None = None  # lib/devtrace.DeviceTrace of the traced part
     host_spans: list = dataclasses.field(default_factory=list)
     notes: dict = dataclasses.field(default_factory=dict)  # for stderr
+    # entries of the result's "device" that a run over ranks sets itself
+    # (lib/ranks.py: count, peaks by card, busy time over the cards)
+    device: dict = dataclasses.field(default_factory=dict)
+    # modules of the JAX package that other ranks found loaded
+    forbidden: list = dataclasses.field(default_factory=list)
 
     @property
     def correct(self) -> bool:

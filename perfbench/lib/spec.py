@@ -18,6 +18,8 @@ from pathlib import Path
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+#: The cards a cell may ask for: one, or the four of one host.
+CHIPS = (1, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,19 @@ def load_cell(name: str, benchmark: dict | None = None) -> Cell:
                 if m["moves"] in names and _reports(m, name))
     return Cell(name=name, chips=int(w["chips"]), config=config,
                 traffic=traffic, end_to_end=e2e, per_layer=per)
+
+
+def chips_problems(bench: dict) -> list[str]:
+    """What in `bench` breaks the rule on cards: each cell asks for 1 or
+    4, and at most max(1, cells // 4) cells ask for 4."""
+    cells = bench["workloads"]
+    out = [f"{w['name']} asks for {w['chips']} cards (1 or 4)"
+           for w in cells if w["chips"] not in CHIPS]
+    four = [w["name"] for w in cells if w["chips"] == 4]
+    if len(four) > max(1, len(cells) // 4):
+        out.append(f"{len(four)} of {len(cells)} cells ask for 4 cards: "
+                   f"at most {max(1, len(cells) // 4)} may")
+    return out
 
 
 def driver(traffic: dict):

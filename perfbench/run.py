@@ -11,9 +11,14 @@ compared with the plain reference (perfbench/reference/), each number
 beside its limit on the last lines of stderr and under "check", last in
 the result. The result is the last line of stdout.
 
+A cell whose `chips` is more than 1 runs over that many ranks, one
+process a card (lib/ranks.py), through its driver's `body`; a cell of
+one chip runs in this process through its driver's `run`.
+
 Exits with 2, printing no result, where there is no card or fewer than
 the cell asks for, where the port is not in the checkout, or where a
-module of the JAX reference package was loaded.
+module of the JAX reference package was loaded on any rank; with 1,
+printing no result, where a rank failed (its traceback on stderr).
 """
 import time
 
@@ -27,7 +32,7 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from perfbench.lib import guard, outcome, spec  # noqa: E402
+from perfbench.lib import guard, outcome, ranks, spec  # noqa: E402
 
 
 def parse(argv):
@@ -45,16 +50,17 @@ def fail(msg: str) -> int:
 
 
 def main(argv=None, *, device="cuda", adjust=None, wrap=None,
-         guard_modules=True):
+         guard_modules=True, benchmark=None):
     """Run the cell; returns (exit code, result line or None). `device`,
     `adjust` (a function of the Cell returning the Cell to run), `wrap`
-    (handed to the driver) and `guard_modules` exist for the CPU tests,
-    which skip the look for a card and run inside a test process that
-    may hold other tests' modules."""
+    (handed to the driver), `guard_modules` (rank 0's look; spawned ranks
+    always look) and `benchmark` (a dict in place of BENCHMARK.json) exist
+    for the CPU tests, which skip the look for a card and run inside a
+    test process that may hold other tests' modules."""
     args = parse(argv)
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail("src/repro_torch is not in this checkout"), None
-    cell = spec.load_cell(args.workload)
+    cell = spec.load_cell(args.workload, benchmark)
     if adjust is not None:
         cell = adjust(cell)
     import torch
@@ -66,10 +72,17 @@ def main(argv=None, *, device="cuda", adjust=None, wrap=None,
             return fail(f"{cell.name} needs {cell.chips} cards, "
                         f"{torch.cuda.device_count()} found"), None
     drv = spec.driver(cell.traffic)
-    out = drv.run(cell, seed=args.seed, seconds=args.seconds,
-                  trace=bool(args.trace), t0=T0,
-                  device=device, wrap=wrap)
-    bad = guard.loaded_forbidden() if guard_modules else []
+    kw = dict(seed=args.seed, seconds=args.seconds, trace=bool(args.trace),
+              t0=T0, device=device, wrap=wrap)
+    if cell.chips == 1:
+        out = drv.run(cell, **kw)
+    else:
+        try:
+            out = ranks.run(cell, drv.body, **kw)
+        except ranks.RankFailed as e:
+            print(f"perfbench: {e}", file=sys.stderr, flush=True)
+            return 1, None
+    bad = (guard.loaded_forbidden() if guard_modules else []) + out.forbidden
     if bad:
         return fail(f"modules of the JAX reference package loaded: {bad}"), \
             None
@@ -100,6 +113,7 @@ def main(argv=None, *, device="cuda", adjust=None, wrap=None,
         dev["window_s"] = out.trace.window_s
         breakdown = {"device_ops": out.trace.top_ops(10),
                      "idle_gaps": out.trace.idle_gaps(out.host_spans, 10)}
+    dev.update(out.device)
     line = outcome.result_line(out, metrics, dev, breakdown)
     outcome.emit(line, out.checks)
     return 0, line

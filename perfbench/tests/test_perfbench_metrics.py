@@ -60,7 +60,6 @@ def test_readers_compute_rooflines_from_shapes():
         100 * 16 * (1 << 26) / 3.35e12 / 0.012)
     assert read("resident_sort_roofline")(ctx) == pytest.approx(
         100 * 200 * (1 << 26) * 2 / 3.35e12 / 0.018)
-    assert read("payload_move_ms_per_sort")(ctx) == pytest.approx(2.5)
     assert read("device_idle_share.resident")(ctx) == pytest.approx(55.0)
 
 

@@ -43,14 +43,39 @@ def test_names_units_and_bounds():
 @pytest.mark.parametrize("name", CELLS)
 def test_each_cell_is_found_and_reports_what_it_must(name):
     cell = spec.load_cell(name)
-    assert cell.chips == 1
-    assert spec.driver(cell.traffic).run
+    assert cell.chips in spec.CHIPS
+    # a cell of one chip runs in run.py's process, one over ranks per rank
+    assert callable(getattr(spec.driver(cell.traffic),
+                            "run" if cell.chips == 1 else "body"))
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert cell.per_layer
     for m in cell.per_layer:
         assert m["moves"] in e2e
         assert callable(spec.metric_reader(m["name"]))
+
+
+def test_the_benchmark_keeps_the_rule_on_cards():
+    assert spec.chips_problems(BENCH) == []
+
+
+def _cells(*chips):
+    return {"workloads": [{"name": f"c{i}", "chips": c}
+                          for i, c in enumerate(chips)]}
+
+
+@pytest.mark.parametrize("chips,ok", [
+    ((4,), True),  # one cell may always take four
+    ((1, 4), True),
+    ((1, 1, 1, 4), True),
+    ((1, 1, 4, 4), False),  # 2 of 4 cells: over a quarter
+    ((1,) * 6 + (4, 4), True),  # 2 of 8
+    ((1,) * 5 + (4, 4, 4), False),
+    ((2,), False), ((3,), False), ((8,), False), ((1, 2), False),
+])
+def test_cells_ask_for_one_or_four_cards_four_in_at_most_a_quarter(
+        chips, ok):
+    assert (spec.chips_problems(_cells(*chips)) == []) is ok
 
 
 def test_every_file_is_named_by_an_entry():
